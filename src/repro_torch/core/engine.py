@@ -39,7 +39,7 @@ from repro_torch import optim
 from repro_torch.config import RunConfig
 from repro_torch.core.lr_policies import resolve_trace_lrs
 from repro_torch.core.protocols import init_ps_state
-from repro_torch.core.simulator import SimResult
+from repro_torch.core.simulator import SimResult, on_device
 from repro_torch.core.topology import Topology
 from repro_torch.core.trace import ArrivalTrace
 from repro_torch.kernels import replay_ring
@@ -65,15 +65,6 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
         f"item {item}); run it on the reference package repro")
-
-
-def _to_device(tree, device):
-    """Map numpy arrays / tensors in a tuple, list or dict to ``device``."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return torch.as_tensor(tree, device=device)
 
 
 def _index(tree, j):
@@ -166,7 +157,7 @@ def _trace_xs(trace: ArrivalTrace, K: int, device: torch.device,
     if batches is None and batch_fn is not None:
         batches = _materialize_batches(trace, batch_fn)
     if batches is not None:
-        xs["batch"] = _to_device(batches, device)
+        xs["batch"] = on_device(batches, device)
     return xs
 
 

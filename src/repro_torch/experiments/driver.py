@@ -3,14 +3,20 @@
 
 ``run`` executes a declarative :class:`ExperimentSpec` end to end — resolve
 problem and budget, schedule the arrival trace (host-side numpy, bitwise
-the reference's), replay it on ``device`` through the CUDA ring kernels,
-and fold trace + metrics into a :class:`RunResult` record.  ``execute`` is
-the raw-callable entry point.  Both take ``device=`` and default to
-``"cuda"``; without a card they raise unless the caller asks for
-``"cpu"``.
+the reference's), replay it on ``device`` through the CUDA ring kernels
+(``engine="compiled"``) or run the legacy per-arrival loop whose host PS
+fires the CUDA ``ps_apply`` kernel (``engine="legacy"``), and fold trace +
+metrics into a :class:`RunResult` record.  ``execute`` is the raw-callable
+entry point.  Both take ``device=`` and default to ``"cuda"``; without a
+card they raise unless the caller asks for ``"cpu"``.
+
+A problem's ``grad_fn`` takes a leading slot axis (the replay computes c
+gradients at once); the legacy loop computes one gradient per arrival, so
+``run`` hands it :func:`per_arrival_grad` — the same ``grad_fn`` called
+on a slot axis of one.
 
 Not ported yet: ``run_sweep`` and its batched replay (ROADMAP.md queue 1
-items 4.6 and 5) and the legacy per-arrival oracle (item 7).
+items 4.6 and 5).
 """
 
 from __future__ import annotations
@@ -19,16 +25,22 @@ from typing import Callable, Dict, List, Optional
 
 from repro_torch.config import RunConfig
 from repro_torch.core.engine import replay, resolve_device
-from repro_torch.core.simulator import SimResult
+from repro_torch.core.simulator import SimResult, simulate
 from repro_torch.core.trace import ArrivalTrace, schedule, schedule_cached
 from repro_torch.experiments.result import RunResult
 from repro_torch.experiments.spec import ExperimentSpec
+from repro_torch.optim.flatten import tree_map
 
 
-def _legacy_not_ported():
-    return NotImplementedError(
-        "engine='legacy' (the per-arrival host-PS oracle) is not ported to "
-        "repro_torch yet (ROADMAP.md queue 1 item 7); run it on repro")
+def per_arrival_grad(grad_fn: Callable) -> Callable:
+    """A slot-batched ``grad_fn(params, batch)`` (every leaf with a leading
+    (c,) axis) as the one-minibatch gradient the legacy loop calls: both
+    get a slot axis of one, the gradients lose it."""
+    def fn(params, batch):
+        grads = grad_fn(tree_map(lambda t: t[None], params),
+                        tree_map(lambda t: t[None], batch))
+        return tree_map(lambda t: t[0], grads)
+    return fn
 
 
 def execute(run_cfg: RunConfig, *,
@@ -44,10 +56,15 @@ def execute(run_cfg: RunConfig, *,
     """Run one simulation from raw callables (no problem registry).
 
     ``engine``: "compiled" (schedule + replay; measure-only when
-    ``grad_fn`` is None) or "measure" (schedule pass only)."""
+    ``grad_fn`` is None; ``grad_fn`` takes a leading slot axis), "measure"
+    (schedule pass only), or "legacy" (the per-arrival oracle loop in
+    ``core/simulator.py``; ``grad_fn`` takes one minibatch)."""
     dev = resolve_device(device)
     if engine == "legacy":
-        raise _legacy_not_ported()
+        return simulate(run_cfg, steps=steps, grad_fn=grad_fn,
+                        init_params=init_params, batch_fn=batch_fn,
+                        eval_fn=eval_fn, eval_every=eval_every,
+                        duration_sampler=duration_sampler, device=dev)
     if engine not in ("compiled", "measure"):
         raise ValueError(f"unknown engine {engine!r}")
     trace = schedule(run_cfg, steps, duration_sampler=duration_sampler)
@@ -126,13 +143,20 @@ def run(spec: ExperimentSpec, *, device="cuda", init=None) -> RunResult:
              else schedule(spec.run, steps, duration_sampler=sampler))
     if engine == "measure":
         return _result(spec, trace, None, None, replay_path="measure")
+    init_params = problem.init(dev) if init is None else init
     if engine == "legacy":
-        raise _legacy_not_ported()
+        sim = simulate(spec.run, steps=steps,
+                       grad_fn=per_arrival_grad(problem.grad_fn),
+                       init_params=init_params,
+                       batch_fn=problem.batch_fn_for(spec.run.minibatch),
+                       eval_fn=problem.eval_fn, eval_every=spec.eval_every,
+                       duration_sampler=sampler, device=dev)
+        return _result(spec, trace, sim, problem, replay_path="legacy")
     staged = _staged_batches(problem, trace, spec.run.minibatch)
     flat_grad = getattr(problem, "flat_grad", None)
     sim = replay(trace, spec.run,
                  grad_fn=problem.grad_fn,
-                 init_params=problem.init(dev) if init is None else init,
+                 init_params=init_params,
                  batch_fn=(None if staged is not None
                            else problem.batch_fn_for(spec.run.minibatch)),
                  batches=staged,

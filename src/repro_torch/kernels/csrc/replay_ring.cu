@@ -26,54 +26,20 @@
 // every read of element i precedes its write, so prev == slot (K = 1) and
 // slot in ts are safe.
 //
-// Numerics: every operation is an explicitly rounded fp32 intrinsic
-// (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn), in the
-// order of the plain PyTorch version (repro_torch/optim/spec.py,
-// repro_torch/optim/backends.py), and the file is built with -fmad=false,
-// so no multiply-add is contracted: kernel == plain version bitwise.  bf16
-// rounding is round-to-nearest-even (__float2bfloat16_rn), as torch's
-// .to(torch.bfloat16).
+// Numerics: the update math (update_event, the slot-order combine, the
+// sequential events) lives in update_event.cuh, shared with ps_update.cu, so
+// kernel == plain version bitwise for both.  bf16 rounding is
+// round-to-nearest-even (__float2bfloat16_rn), as torch's .to(torch.bfloat16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "update_event.cuh"
+
 namespace {
 
-enum { OPT_SGD = 0, OPT_MOMENTUM = 1, OPT_ADAGRAD = 2 };
-constexpr int THREADS = 256;
-
-// ---- V-wide loads and stores, converting to / from fp32 -------------------
-template <int V> __device__ __forceinline__ void ld(const float* p, float* o);
-template <> __device__ __forceinline__ void ld<1>(const float* p, float* o) {
-  o[0] = p[0];
-}
-template <> __device__ __forceinline__ void ld<4>(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-template <int V>
-__device__ __forceinline__ void ld(const __nv_bfloat16* p, float* o);
-template <>
-__device__ __forceinline__ void ld<1>(const __nv_bfloat16* p, float* o) {
-  o[0] = __bfloat162float(p[0]);
-}
-template <>
-__device__ __forceinline__ void ld<4>(const __nv_bfloat16* p, float* o) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  o[0] = __low2float(lo); o[1] = __high2float(lo);
-  o[2] = __low2float(hi); o[3] = __high2float(hi);
-}
-
-template <int V> __device__ __forceinline__ void st(float* p, const float* v);
-template <> __device__ __forceinline__ void st<1>(float* p, const float* v) {
-  p[0] = v[0];
-}
-template <> __device__ __forceinline__ void st<4>(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
+using namespace update_math;
 
 // Quantize w into the ring row at p; q receives float(quantized w).
 template <int V>
@@ -100,24 +66,6 @@ __device__ __forceinline__ void quantize_store(__nv_bfloat16* p,
   } else {
 #pragma unroll
     for (int v = 0; v < V; ++v) p[v] = b[v];
-  }
-}
-
-// ---- THE update rule (repro_torch/optim/spec.py::update_event) ------------
-template <int OPT>
-__device__ __forceinline__ void update_event(float& w, float& s, float g,
-                                             float lr, float m, float eps) {
-  if (OPT == OPT_SGD) {
-    w = __fsub_rn(w, __fmul_rn(lr, g));                 // w - lr*g
-  } else if (OPT == OPT_MOMENTUM) {
-    const float v = __fadd_rn(__fmul_rn(m, s), g);      // m*s + g
-    w = __fsub_rn(w, __fmul_rn(lr, v));                 // w - lr*v
-    s = v;
-  } else {
-    const float a = __fadd_rn(s, __fmul_rn(g, g));      // s + g*g
-    const float d = __fadd_rn(__fsqrt_rn(a), eps);      // sqrt(a) + eps
-    w = __fsub_rn(w, __fdiv_rn(__fmul_rn(lr, g), d));   // w - lr*g / d
-    s = a;
   }
 }
 
@@ -181,31 +129,7 @@ ring_apply_kernel(T* ring, float* s, float* res, const float* __restrict__ g,
        e < D; e += stride) {
     float w[V], sv[V];
     load_event<T, OPT, EF, V>(src, s, res, e, w, sv);
-    if (SEQ) {
-      for (int j = 0; j < c; ++j) {
-        float gj[V];
-        ld<V>(g + (int64_t)j * D + e, gj);
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          update_event<OPT>(w[v], sv[v], __fmul_rn(sc[j], gj[v]), sl[j], m,
-                            eps);
-      }
-    } else {
-      float acc[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < c; ++j) {
-        float gj[V];
-        ld<V>(g + (int64_t)j * D + e, gj);
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          acc[v] = __fadd_rn(acc[v], __fmul_rn(sc[j], gj[v]));
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        update_event<OPT>(w[v], sv[v], acc[v], sl[0], m, eps);
-    }
+    staged_events<OPT, SEQ, V>(w, sv, g, D, e, c, sc, sl, m, eps);
     store_event<T, OPT, EF, V>(dst, s, res, e, w, sv);
   }
 }
@@ -257,29 +181,6 @@ ring_apply_whatif_kernel(T* ring, float* s, float* res,
     for (int v = 0; v < V; ++v) update_event<OPT>(w[v], sv[v], acc[v], lr, m, eps);
     store_event<T, OPT, EF, V>(dst, s, res, e, w, sv);
   }
-}
-
-// Streaming multiprocessors of the current device, read once per device.
-int sm_count() {
-  constexpr int MAX_DEVICES = 64;
-  static int cache[MAX_DEVICES] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
-    return 1;
-  if (cache[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cache[dev] = n > 0 ? n : 1;
-  }
-  return cache[dev];
-}
-
-int blocks_for(int64_t D, int V) {
-  const int64_t work = (D + V - 1) / V;
-  int64_t b = (work + THREADS - 1) / THREADS;
-  const int64_t cap = (int64_t)sm_count() * 64;  // grid-stride beyond 64/SM
-  if (b > cap) b = cap;
-  return (int)(b < 1 ? 1 : b);
 }
 
 template <typename T, int OPT, bool SEQ, bool EF, int V>

@@ -1,0 +1,28 @@
+"""Public wrappers of the port's kernels (counterpart of
+``repro/kernels/ops.py``; only the parameter-server update is ported so
+far — the attention, SSM and WKV kernels wait for the ``models/`` slice,
+ROADMAP.md queue 2 items 4–6).
+
+The reference jit-compiles each wrapper and derives Pallas' interpret mode
+from the backend.  Here the device of the operands decides: a CUDA tensor
+launches the CUDA kernel, a CPU tensor runs its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import ps_update as _ps
+
+
+def ps_update(w_flat, v_flat, g_flat, coef, *, momentum: float = 0.9,
+              lr: float = 1.0):
+    """Momentum combine-mode PS update (see ``ps_update.ps_update_flat``)."""
+    return _ps.ps_update_flat(w_flat, v_flat, g_flat, coef,
+                              momentum=momentum, lr=lr)
+
+
+def ps_apply(w_flat, s_flat, g_flat, coef, lrs, *, spec,
+             mode: str = "combine"):
+    """General fused applyUpdate (sgd/momentum/adagrad; see
+    ``repro_torch.optim``)."""
+    return _ps.ps_apply(w_flat, s_flat, g_flat, coef, lrs, spec=spec,
+                        mode=mode)

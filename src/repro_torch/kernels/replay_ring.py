@@ -36,7 +36,6 @@ from repro_torch.optim.spec import UpdateSpec
 # kernel launches per wrapper since the last reset_launches()
 launches = {"ring_apply": 0, "ring_apply_whatif": 0}
 
-_OPT_CODES = {"sgd": 0, "momentum": 1, "adagrad": 2}
 _RING_DTYPES = (torch.float32, torch.bfloat16)
 
 Ring3 = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -59,23 +58,7 @@ def _library() -> ctypes.CDLL:
     lib.ring_apply_whatif.argtypes = [p, i, p, p, p, p, p, p, p,
                                       ctypes.c_longlong, i, i, f, f, i, p]
     lib.ring_apply_whatif.restype = i
-    lib.replay_ring_error_string.argtypes = [i]
-    lib.replay_ring_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check(name: str, t: Optional[torch.Tensor], shape, dtype, device):
-    if t is None:
-        return
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the ring on {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_event(spec: UpdateSpec, ring, s, res, c: int, coef, lrs, idx,
@@ -91,29 +74,11 @@ def _check_event(spec: UpdateSpec, ring, s, res, c: int, coef, lrs, idx,
         raise ValueError(f"{spec.optimizer} needs "
                          f"{'no' if s is None else 'a'} state vector")
     D, dev = ring.shape[1], ring.device
-    _check("s", s, (D,), torch.float32, dev)
-    _check("res", res, (D,), torch.float32, dev)
-    _check("coef", coef, (c,), torch.float32, dev)
-    _check("lrs", lrs, (c,), torch.float32, dev)
-    _check("idx", idx, (n_idx,), torch.int32, dev)
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _vec4(D: int, *tensors) -> int:
-    """1 when every row start is 16-byte aligned for fp32 and 8-byte for
-    bf16 (D % 4 == 0 and aligned bases): the kernel's vector-load path."""
-    ok = D % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                            for t in tensors if t is not None)
-    return int(ok)
-
-
-def _raise_on(lib, err: int, name: str) -> None:
-    if err:
-        msg = lib.replay_ring_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    build.check_operand("s", s, (D,), torch.float32, dev)
+    build.check_operand("res", res, (D,), torch.float32, dev)
+    build.check_operand("coef", coef, (c,), torch.float32, dev)
+    build.check_operand("lrs", lrs, (c,), torch.float32, dev)
+    build.check_operand("idx", idx, (n_idx,), torch.int32, dev)
 
 
 def ring_apply(ring: torch.Tensor, s: Optional[torch.Tensor],
@@ -131,7 +96,8 @@ def ring_apply(ring: torch.Tensor, s: Optional[torch.Tensor],
         raise ValueError(f"unknown mode {mode!r}")
     c = g.shape[0]
     _check_event(spec, ring, s, res, c, coef, lrs, idx, 2)
-    _check("g", g, (c, ring.shape[1]), torch.float32, ring.device)
+    build.check_operand("g", g, (c, ring.shape[1]), torch.float32,
+                        ring.device)
     if ring.device.type == "cpu":
         return backends.apply_event_ring(spec, ring, s, res, g, coef, lrs,
                                          idx[0], idx[1], mode)
@@ -141,12 +107,13 @@ def ring_apply(ring: torch.Tensor, s: Optional[torch.Tensor],
     lib = _library()
     D = ring.shape[1]
     err = lib.ring_apply(
-        ring.data_ptr(), int(ring.dtype == torch.bfloat16), _ptr(s),
-        _ptr(res), g.data_ptr(), coef.data_ptr(), lrs.data_ptr(),
-        idx.data_ptr(), D, c, _OPT_CODES[spec.optimizer],
+        ring.data_ptr(), int(ring.dtype == torch.bfloat16), build.ptr(s),
+        build.ptr(res), g.data_ptr(), coef.data_ptr(), lrs.data_ptr(),
+        idx.data_ptr(), D, c, build.OPT_CODES[spec.optimizer],
         int(mode == "sequential"), spec.momentum, spec.eps,
-        _vec4(D, ring, s, res, g), torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "ring_apply")
+        build.vec4(D, ring, s, res, g),
+        torch.cuda.current_stream().cuda_stream)
+    build.raise_on(lib, "replay_ring", err, "ring_apply")
     launches["ring_apply"] += 1
     return ring, s, res
 
@@ -169,8 +136,8 @@ def ring_apply_whatif(ring: torch.Tensor, s: Optional[torch.Tensor],
                          f"{idx.shape[0]} entries")
     _check_event(spec, ring, s, res, c, coef, lrs, idx, c + 2)
     D = ring.shape[1]
-    _check("a", a, (D,), torch.float32, ring.device)
-    _check("wstar", wstar, (D,), torch.float32, ring.device)
+    build.check_operand("a", a, (D,), torch.float32, ring.device)
+    build.check_operand("wstar", wstar, (D,), torch.float32, ring.device)
     if ring.device.type == "cpu":
         return backends.apply_event_ring_whatif(
             spec, ring, s, res, a, wstar, idx[2:], coef, lrs, idx[0], idx[1])
@@ -179,11 +146,12 @@ def ring_apply_whatif(ring: torch.Tensor, s: Optional[torch.Tensor],
                          f"(plain version), not {ring.device.type}")
     lib = _library()
     err = lib.ring_apply_whatif(
-        ring.data_ptr(), int(ring.dtype == torch.bfloat16), _ptr(s),
-        _ptr(res), a.data_ptr(), wstar.data_ptr(), coef.data_ptr(),
-        lrs.data_ptr(), idx.data_ptr(), D, c, _OPT_CODES[spec.optimizer],
-        spec.momentum, spec.eps, _vec4(D, ring, s, res, a, wstar),
+        ring.data_ptr(), int(ring.dtype == torch.bfloat16), build.ptr(s),
+        build.ptr(res), a.data_ptr(), wstar.data_ptr(), coef.data_ptr(),
+        lrs.data_ptr(), idx.data_ptr(), D, c,
+        build.OPT_CODES[spec.optimizer], spec.momentum, spec.eps,
+        build.vec4(D, ring, s, res, a, wstar),
         torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "ring_apply_whatif")
+    build.raise_on(lib, "replay_ring", err, "ring_apply_whatif")
     launches["ring_apply_whatif"] += 1
     return ring, s, res

@@ -1,17 +1,32 @@
-"""Flat-buffer update events — the plain PyTorch versions of the replay kernels
-(counterpart of the flat-event part of ``repro/optim/backends.py``).
+"""The unified applyUpdate of the port: the pytree backends, the flat
+kernel backend, and the flat-buffer events the CUDA kernels are held
+against (counterpart of ``repro/optim/backends.py``).
 
-Every function here is the reference's jnp twin rewritten op for op in
-eager PyTorch, with two deliberate differences:
+Three interchangeable backends for :func:`apply_update`, the reference's
+names:
+
+* ``reference`` — eager PyTorch, leaf by leaf.  The oracle.
+* ``jit``       — the same eager pytree function (the port compiles
+  nothing: PyTorch runs eagerly, and no ``torch.compile`` stands in for
+  ``jax.jit``).
+* ``pallas``    — every leaf concatenated into one flat fp32 buffer and
+  the whole model updated by ONE ``kernels.ps_update.ps_apply`` launch
+  (the CUDA kernel on a card, its plain version :func:`apply_event_flat`
+  on the CPU).  The host PS hot path.
+
+All of them execute :func:`repro_torch.optim.spec.update_event`, with two
+deliberate differences from the reference's jnp code:
 
 * The combine ĝ = Σⱼ coefⱼ·gⱼ is an explicit loop in slot order 0…c−1
   (``acc = acc + coef[j]·g[j]``), not an ``einsum``: the CUDA kernels
   accumulate in exactly that order, so kernel ≡ plain version bitwise on
-  the card.  Against the reference's ``einsum("cd,c->d")`` on the CPU the
-  order differs, so the two agree within a few ulp (the tolerance is
-  stated in ``tests/test_torch_optim.py``).
+  the card.  Against the reference's ``einsum`` on the CPU the order
+  differs, so the two agree within a few ulp (the tolerances are stated
+  in ``tests/test_torch_optim.py`` and ``tests/test_torch_legacy.py``).
 * Ring events update ``ring``, ``s`` and ``res`` **in place** (as the
-  kernels do) and return them, so a (K, D) ring is never copied per event.
+  ring kernels do) and return them, so a (K, D) ring is never copied per
+  event.  Everything else makes new tensors, as the reference does: the
+  host PS hands its weights to learners, which must keep the stale copy.
 
 ``prev``/``slot``/``ts`` are int32 or int64 index tensors on the ring's
 device, read without a host sync.
@@ -19,9 +34,19 @@ device, read without a host sync.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
+from repro_torch.optim import flatten
+from repro_torch.optim.flatten import tree_map
 from repro_torch.optim.spec import UpdateSpec, update_event
+
+BACKENDS = ("reference", "jit", "pallas")
+
+# host-side count of flat-kernel dispatches of apply_update (tests and
+# chip_smoke.py assert the kernel path really is the one exercised)
+pallas_dispatches = 0
 
 RING_IMPLS = ("auto", "pallas", "fused", "stock")
 
@@ -30,10 +55,11 @@ RING_IMPLS = ("auto", "pallas", "fused", "stock")
 WHATIF_CHUNK = 1 << 24
 
 
-def combine(g: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """ĝ = Σⱼ coefⱼ·gⱼ over the rows of (c, D) fp32 ``g``, in slot order."""
-    acc = torch.zeros(g.shape[1:], dtype=torch.float32, device=g.device)
-    for j in range(g.shape[0]):
+def combine(g, coef: torch.Tensor) -> torch.Tensor:
+    """ĝ = Σⱼ coefⱼ·gⱼ over the c fp32 rows of ``g`` (a (c, D) tensor or a
+    sequence of c equal-shaped tensors), in slot order 0…c−1."""
+    acc = torch.zeros(g[0].shape, dtype=torch.float32, device=g[0].device)
+    for j in range(len(g)):
         acc = acc + coef[j] * g[j]
     return acc
 
@@ -53,6 +79,125 @@ def apply_event_flat(spec: UpdateSpec, w, s, g, coef, lrs,
     for i in range(g.shape[0]):
         w, s = update_event(spec, w, s, coef[i] * g32[i], lrs[i])
     return w, s
+
+
+def _f32(tree):
+    return tree_map(lambda x: x.to(torch.float32), tree)
+
+
+def _combine(grads: Sequence, coef):
+    """Σᵢ coefᵢ·Gᵢ in fp32 over c gradient trees, leaf by leaf, in slot
+    order 0…c−1 — the staleness-weighted sumGradients."""
+    return tree_map(
+        lambda *g: combine([x.to(torch.float32) for x in g], coef), *grads)
+
+
+# ---------------------------------------------------------------------------
+# pytree event application (reference + jit backends)
+# ---------------------------------------------------------------------------
+def _adamw_event(spec: UpdateSpec, params, state, g32, lr):
+    b1, b2, eps = spec.beta1, spec.beta2, spec.eps
+    cnt = state["count"] + 1
+    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], g32)
+    nu = tree_map(lambda n, g: b2 * n + (1 - b2) * torch.square(g),
+                  state["nu"], g32)
+    c1 = 1 - b1 ** cnt.to(torch.float32)
+    c2 = 1 - b2 ** cnt.to(torch.float32)
+
+    def step(p, m, n):
+        p32 = p.to(torch.float32)
+        return (p32 - lr * ((m / c1) / (torch.sqrt(n / c2) + eps)
+                            + spec.weight_decay * p32)).to(p.dtype)
+    return tree_map(step, params, mu, nu), {"mu": mu, "nu": nu, "count": cnt}
+
+
+def apply_single(spec: UpdateSpec, params, state, grad, lr):
+    """ONE optimizer event with gradient tree ``grad`` and lr ``lr`` (a
+    float or a 0-dim fp32 tensor).  Returns new ``(params, state)``."""
+    g32 = _f32(grad)
+    if spec.optimizer == "adamw":
+        return _adamw_event(spec, params, state, g32, lr)
+    if spec.optimizer == "sgd":
+        return tree_map(
+            lambda p, g: update_event(spec, p.to(torch.float32), None, g,
+                                      lr)[0].to(p.dtype),
+            params, g32), state
+    key = spec.state_keys[0]
+    out = tree_map(
+        lambda p, s, g: update_event(spec, p.to(torch.float32),
+                                     s.to(torch.float32), g, lr),
+        params, state[key], g32)
+    if not isinstance(params, dict):
+        return out[0].to(params.dtype), {key: out[1].to(state[key].dtype)}
+    return ({k: out[k][0].to(params[k].dtype) for k in params},
+            {key: {k: out[k][1].to(state[key][k].dtype) for k in params}})
+
+
+def apply_update_tree(spec: UpdateSpec, params, state, grads: Sequence,
+                      coef, lrs, mode: str = "combine"):
+    """The unified update on trees (the reference semantics).
+
+    ``grads`` is a sequence of c gradient trees; ``coef``/``lrs`` are (c,)
+    fp32 tensors (combination weights, per-event LRs)."""
+    if mode == "combine":
+        return apply_single(spec, params, state, _combine(grads, coef),
+                            lrs[0])
+    if mode != "sequential":
+        raise ValueError(f"unknown mode {mode!r}")
+    for i, gi in enumerate(grads):
+        gi = tree_map(lambda g: coef[i] * g.to(torch.float32), gi)
+        params, state = apply_single(spec, params, state, gi, lrs[i])
+    return params, state
+
+
+def apply_update_flat(spec: UpdateSpec, params, state, grads: Sequence,
+                      coef, lrs, mode: str = "combine"):
+    """Flatten → ONE ``ps_apply`` launch over the whole model → unflatten.
+    The returned trees are views of the kernel's fresh output buffers."""
+    from repro_torch.kernels import ps_update   # lazy: breaks import cycle
+
+    p_layout = flatten.layout_of(params)
+    w = flatten.tree_to_flat(params)
+    g = flatten.stack_grads_flat(grads)
+    if spec.optimizer == "sgd":
+        w2, _ = ps_update.ps_apply(w, None, g, coef, lrs, spec=spec,
+                                   mode=mode)
+        return flatten.flat_to_tree(w2, p_layout), state
+    key = spec.state_keys[0]
+    s_layout = flatten.layout_of(state[key])
+    s = flatten.tree_to_flat(state[key])
+    w2, s2 = ps_update.ps_apply(w, s, g, coef, lrs, spec=spec, mode=mode)
+    return (flatten.flat_to_tree(w2, p_layout),
+            {key: flatten.flat_to_tree(s2, s_layout)})
+
+
+def apply_update(spec: UpdateSpec, params, state, grads: Sequence,
+                 coef, lrs, *, mode: str = "combine", backend: str = "jit"):
+    """The one entry point every consumer routes through.
+
+    ``grads``: sequence of c gradient trees.  ``coef``: (c,) combination
+    weights.  ``lrs``: (c,) per-event LRs (``combine`` mode reads
+    lrs[0]).  Both may be sequences or tensors; they go to the parameters'
+    device as fp32, one transfer each.  adamw has no flat path: the
+    ``pallas`` backend takes the pytree path for it, as in the
+    reference."""
+    global pallas_dispatches
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    grads = tuple(grads)
+    dev = flatten.tree_device(params)
+    coef = torch.as_tensor(coef, dtype=torch.float32, device=dev)
+    lrs = torch.as_tensor(lrs, dtype=torch.float32, device=dev)
+    if backend == "pallas" and spec.kernel_supported:
+        pallas_dispatches += 1
+        return apply_update_flat(spec, params, state, grads, coef, lrs,
+                                 mode)
+    return apply_update_tree(spec, params, state, grads, coef, lrs, mode)
+
+
+def sgd_step(params, grad, lr):
+    """Convenience plain-SGD event (baseline simulators)."""
+    return apply_single(UpdateSpec(optimizer="sgd"), params, {}, grad, lr)[0]
 
 
 def resolve_ring_impl(impl: str, spec: UpdateSpec) -> str:

@@ -1,26 +1,35 @@
-"""Parameter dict ⇄ one flat fp32 buffer (counterpart of ``repro/optim/flatten.py``).
+"""Parameter tree ⇄ one flat fp32 buffer (counterpart of ``repro/optim/flatten.py``).
 
-The replay ring stores every snapshot as ONE contiguous (D,) row, so an
-update event is one elementwise pass over D.  The layout must be the
-reference's: ``jax.tree_util`` flattens a dict in **sorted key order**
+A parameter tree of the port is a dict of tensors, or a bare tensor (a
+one-leaf tree: the host PS takes any tree, and the reference's tests hand
+it a bare array).  The replay ring stores every snapshot as ONE contiguous
+(D,) row, and the host PS updates the whole model in ONE ``ps_apply``
+launch, so an update is one elementwise pass over D.  The layout must be
+the reference's: ``jax.tree_util`` flattens a dict in **sorted key order**
 (``mlp_teacher`` → b1, b2, w1, w2), so the port sorts keys too — insertion
 order would silently permute the ring against the reference.
+
+:func:`tree_map` is the port's ``jax.tree.map`` over such trees (and over
+the tuples and lists a batch is made of).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+Tree = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
 class TreeLayout:
-    """Static description of a flattened parameter dict (sorted keys)."""
+    """Static description of a flattened tree (sorted keys; ``keys`` is
+    None for a bare tensor)."""
 
-    keys: Tuple[str, ...]
+    keys: Optional[Tuple[str, ...]]
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
     sizes: Tuple[int, ...]
@@ -30,20 +39,59 @@ class TreeLayout:
         return int(sum(self.sizes))
 
 
-def layout_of(tree: Dict[str, torch.Tensor]) -> TreeLayout:
-    keys = tuple(sorted(tree))
-    shapes = tuple(tuple(tree[k].shape) for k in keys)
-    return TreeLayout(keys=keys, shapes=shapes,
-                      dtypes=tuple(tree[k].dtype for k in keys),
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over matching leaves of dicts, tuples and lists of tensors
+    (a bare tensor is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _leaves(tree: Tree):
+    """Leaves in the reference's order: sorted keys, or the bare tensor."""
+    if isinstance(tree, dict):
+        return [tree[k] for k in sorted(tree)]
+    return [tree]
+
+
+def tree_device(tree: Tree) -> torch.device:
+    """The device of the tree's first leaf."""
+    return _leaves(tree)[0].device
+
+
+def layout_of(tree: Tree) -> TreeLayout:
+    leaves = _leaves(tree)
+    shapes = tuple(tuple(v.shape) for v in leaves)
+    return TreeLayout(keys=tuple(sorted(tree)) if isinstance(tree, dict)
+                      else None,
+                      shapes=shapes, dtypes=tuple(v.dtype for v in leaves),
                       sizes=tuple(math.prod(s) for s in shapes))
 
 
-def tree_to_flat(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+def tree_to_flat(tree: Tree) -> torch.Tensor:
     """Concatenate all leaves (sorted keys) into one fp32 (D,) vector.  A
-    single fp32 1-D leaf is returned as is — no copy of a what-if-sized
-    buffer."""
-    leaves = [tree[k].reshape(-1).to(torch.float32) for k in sorted(tree)]
+    single fp32 leaf comes back as a view of itself — no copy of a
+    what-if-sized buffer — so a consumer must not write the result in
+    place."""
+    leaves = [v.reshape(-1).to(torch.float32) for v in _leaves(tree)]
     return leaves[0] if len(leaves) == 1 else torch.cat(leaves)
+
+
+def stack_grads_flat(grads: Sequence[Tree]) -> torch.Tensor:
+    """c gradient trees → one (c, D) fp32 matrix, written row by row into
+    one allocation (no list of c flat copies beside it)."""
+    layout = layout_of(grads[0])
+    out = torch.empty(len(grads), layout.total, dtype=torch.float32,
+                      device=tree_device(grads[0]))
+    for row, g in zip(out, grads):
+        off = 0
+        for leaf, size in zip(_leaves(g), layout.sizes):
+            row[off:off + size] = leaf.reshape(-1)
+            off += size
+    return out
 
 
 def batched_tree_to_flat(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -68,13 +116,15 @@ def batched_flat_to_tree(flat: torch.Tensor,
     return out
 
 
-def flat_to_tree(flat: torch.Tensor,
-                 layout: TreeLayout) -> Dict[str, torch.Tensor]:
-    """Split a (D,) vector back into the dict (leaf dtypes restored)."""
-    out = {}
+def flat_to_tree(flat: torch.Tensor, layout: TreeLayout) -> Tree:
+    """Split a (D,) vector back into the tree (leaf dtypes restored; views
+    of ``flat`` where the dtype already matches)."""
+    leaves = []
     off = 0
-    for key, shape, dtype, size in zip(layout.keys, layout.shapes,
-                                       layout.dtypes, layout.sizes):
-        out[key] = flat[off:off + size].reshape(shape).to(dtype)
+    for shape, dtype, size in zip(layout.shapes, layout.dtypes,
+                                  layout.sizes):
+        leaves.append(flat[off:off + size].reshape(shape).to(dtype))
         off += size
-    return out
+    if layout.keys is None:
+        return leaves[0]
+    return dict(zip(layout.keys, leaves))

@@ -2,11 +2,13 @@
 
 * :class:`UpdateSpec`  — which optimizer + its hyperparameters.
 * :func:`update_event` — one optimizer event on fp32 tensors.  This is the
-  plain version the CUDA replay kernels (``kernels/csrc/replay_ring.cu``)
-  repeat element for element: each line below is one rounded fp32 operation,
-  in the same order as the kernel's ``__fmul_rn``/``__fadd_rn`` chain, so
-  kernel ≡ plain version bitwise on the card.
-* :func:`init_state`   — fp32 optimizer state, a dict of tensors.
+  plain version the CUDA kernels (``kernels/csrc/update_event.cuh``, shared
+  by ``replay_ring.cu`` and ``ps_update.cu``) repeat element for element:
+  each line below is one rounded fp32 operation, in the same order as the
+  kernels' ``__fmul_rn``/``__fadd_rn`` chain, so kernel ≡ plain version
+  bitwise on the card.
+* :func:`init_state`   — fp32 optimizer state, trees shaped like the
+  parameters (adamw: two moments and a step counter).
 
 Two update modes (``combine`` / ``sequential``) are applied by
 ``backends.py``; the meaning is the reference's (DESIGN.md §3).
@@ -18,6 +20,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from repro_torch.optim.flatten import tree_device, tree_map
 
 OPTIMIZERS = ("sgd", "momentum", "adagrad", "adamw")
 
@@ -57,19 +61,21 @@ def spec_from_run(run) -> UpdateSpec:
                       weight_decay=run.weight_decay)
 
 
-def init_state(spec: UpdateSpec, params: dict) -> dict:
+def init_state(spec: UpdateSpec, params) -> dict:
     """Optimizer state: fp32 zeros shaped like each parameter, on its
-    device.  adamw is not ported (ROADMAP.md queue 1 item 4.2)."""
+    device (``params`` a dict of tensors or a bare tensor).  adamw adds its
+    int32 step counter ``count``, on the parameters' device."""
     def f32(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     if spec.optimizer == "momentum":
-        return {"velocity": {k: f32(v) for k, v in params.items()}}
+        return {"velocity": tree_map(f32, params)}
     if spec.optimizer == "adagrad":
-        return {"accum": {k: f32(v) for k, v in params.items()}}
+        return {"accum": tree_map(f32, params)}
     if spec.optimizer == "adamw":
-        raise NotImplementedError(
-            "adamw is not ported yet (ROADMAP.md queue 1 item 4.2)")
+        return {"mu": tree_map(f32, params), "nu": tree_map(f32, params),
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=tree_device(params))}
     return {}
 
 

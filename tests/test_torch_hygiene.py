@@ -6,6 +6,7 @@
   interpreter that imports the whole package and then looks for them).
 * The entry points run on the card unless the caller asks for the CPU:
   without a card, ``driver.run`` / ``driver.execute`` / ``engine.replay``
+  (and the legacy oracle: ``simulate``, the baselines, ``engine="legacy"``)
   called with no ``device=`` raise instead of quietly using the CPU.
 """
 
@@ -43,9 +44,13 @@ def test_port_file_list_is_complete():
     names = {p.relative_to(PORT).as_posix() for p in FILES[:-1]}
     for expected in ("core/engine.py", "core/trace.py", "optim/backends.py",
                      "kernels/replay_ring.py", "experiments/driver.py",
-                     "experiments/carry.py"):
+                     "experiments/carry.py", "core/simulator.py",
+                     "core/baselines.py", "core/protocols.py",
+                     "kernels/ps_update.py", "kernels/ops.py",
+                     "kernels/ref.py"):
         assert expected in names
-    assert (PORT / "kernels" / "csrc" / "replay_ring.cu").is_file()
+    for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh"):
+        assert (PORT / "kernels" / "csrc" / source).is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
@@ -60,6 +65,8 @@ def test_fresh_interpreter_loads_no_jax_and_builds_nothing():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.experiments\n"
             "import repro_torch.kernels.replay_ring, repro_torch.configs\n"
+            "import repro_torch.kernels.ps_update, repro_torch.kernels.ops\n"
+            "import repro_torch.core.baselines\n"
             "from repro_torch.configs import get_config\n"
             "get_config('qwen2_1_5b')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -94,6 +101,17 @@ def test_driver_run_defaults_to_cuda_and_raises_without_card(no_card):
     assert run(_spec(), device="cpu").runtime["updates"] == 4
 
 
+def test_driver_run_legacy_defaults_to_cuda_and_raises_without_card(
+        no_card):
+    from repro_torch.experiments import run
+    spec = _spec().replace(engine="legacy")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(spec)
+    res = run(spec, device="cpu")
+    assert res.runtime["updates"] == 4
+    assert res.runtime["replay_path"] == "legacy"
+
+
 def test_execute_and_replay_raise_without_card(no_card):
     from repro_torch.core import replay, schedule
     from repro_torch.experiments import execute
@@ -105,3 +123,25 @@ def test_execute_and_replay_raise_without_card(no_card):
     with pytest.raises(RuntimeError, match="is_available"):
         replay(schedule(spec.run, 4), spec.run, grad_fn=prob.grad_fn,
                init_params=prob.init("cpu"), batch_fn=prob.batch_fn_for(4))
+
+
+def test_legacy_entry_points_raise_without_card(no_card):
+    from repro_torch.core import simulate
+    from repro_torch.core import baselines
+    from repro_torch.experiments import execute
+    from repro_torch.experiments.driver import per_arrival_grad
+    from repro_torch.experiments.problems import MLPProblem
+    spec = _spec()
+    prob = MLPProblem(hidden=8)
+    kw = dict(steps=4, grad_fn=per_arrival_grad(prob.grad_fn),
+              init_params=prob.init("cpu"), batch_fn=prob.batch_fn_for(4))
+    for call in (lambda: simulate(spec.run, **kw),
+                 lambda: simulate(spec.run, steps=4),
+                 lambda: execute(spec.run, engine="legacy", **kw),
+                 lambda: baselines.simulate_ssp(spec.run, slack=1, **kw),
+                 lambda: baselines.simulate_easgd(spec.run, **kw),
+                 lambda: baselines.simulate_accrual(spec.run, npush=1,
+                                                    **kw)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert simulate(spec.run, device="cpu", **kw).updates == 4

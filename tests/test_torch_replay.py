@@ -237,9 +237,17 @@ def test_not_ported_paths_raise(change, item):
 
 
 def test_legacy_engine_not_ported():
+    """engine='legacy' no longer raises: it runs the per-arrival oracle
+    (``core/simulator.py``, tests/test_torch_legacy.py) on the same trace
+    statistics as the compiled replay, and says so in the record."""
     _, ts = _specs("mlp_teacher", {"hidden": HIDDEN})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_run(ts.replace(engine="legacy"), device="cpu")
+    legacy = t_run(ts.replace(engine="legacy"), device="cpu")
+    compiled = t_run(ts, device="cpu")
+    assert legacy.runtime == {**compiled.runtime, "replay_path": "legacy"}
+    assert legacy.staleness == compiled.staleness
+    for k in compiled.params:
+        torch.testing.assert_close(legacy.params[k], compiled.params[k],
+                                   atol=2e-6, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
