@@ -9,12 +9,15 @@ Nothing is built at import time: the first wrapper call on a CUDA tensor
 builds (or :func:`build_all` does, all sources at once, one ``nvcc`` each).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so no multiply-add
-is contracted into an FMA — the kernels must round exactly like the plain
-PyTorch versions they are held against.  No fast-math.
+is contracted into an FMA — the update kernels must round exactly like the
+plain PyTorch versions they are held against.  No fast-math.
+``flash_attention.cu`` is held against its plain version within a stated
+tolerance, not bitwise, and builds without ``-fmad=false``
+(``SOURCE_FLAGS``); the hash covers each source's own flags.
 
-The wrappers (``replay_ring.py``, ``ps_update.py``) share the binding
-helpers below: operand checks, the 16-byte vector-path test and the launch
-error check.
+The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``)
+share the binding helpers below: operand checks, the 16-byte vector-path
+test and the launch error check.
 """
 
 from __future__ import annotations
@@ -33,12 +36,20 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("replay_ring", "ps_update")
+SOURCES = ("replay_ring", "ps_update", "flash_attention")
 # the kernels' optimizer codes (update_event.cuh: OPT_SGD, OPT_MOMENTUM, ...)
 OPT_CODES = {"sgd": 0, "momentum": 1, "adagrad": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# sources that need no bitwise match with their plain version: FMAs allowed
+SOURCE_FLAGS = {"flash_attention": tuple(f for f in NVCC_FLAGS
+                                         if f != "-fmad=false")}
+
+
+def flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return SOURCE_FLAGS.get(name, NVCC_FLAGS)
 
 
 def nvcc() -> str:
@@ -57,7 +68,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     key = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
@@ -72,7 +83,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.parent / f"{so.name}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     with open(so.with_suffix(".log"), "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, tmp, so

@@ -1,0 +1,329 @@
+"""The port's attention layer and flash-attention kernel against the
+reference (``repro``), on the same numpy-seeded inputs.
+
+* The flash kernel's plain version (``repro_torch.kernels.flash_attention``)
+  against the reference's Pallas kernel run in interpret mode and against
+  ``ref.attention_ref``, at the reference's own tolerances
+  (``tests/test_kernels.py``: 2e-5 in fp32, 3e-2 in bf16).
+* ``naive_attention``, ``chunked_attention``, ``decode_attention`` and
+  ``cache_insert`` (scalar and per-sequence positions, the sliding-window
+  ring), ``rms_norm``, ``apply_rope`` and ``swiglu``.
+* The stacked caches: a real allocation per unit, written in place.
+
+Tests marked ``cuda`` hold the CUDA kernel against its plain version on a
+card; they skip without one.
+"""
+
+import dataclasses
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models import transformer
+
+# fp32: exp and the summation order differ between XLA and PyTorch;
+# bf16: the output is rounded to bf16 after that (tests/test_kernels.py)
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+_T = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The reference package, imported here and not at module level so the
+    card-only tests below collect on a host without JAX."""
+    jax = pytest.importorskip("jax")
+    from repro.config import ModelConfig
+    from repro.kernels import flash_attention, ref
+    from repro.models import attention, layers
+    return types.SimpleNamespace(jnp=jax.numpy, fa=flash_attention, ref=ref,
+                                 attn=attention, layers=layers,
+                                 ModelConfig=ModelConfig)
+
+
+def _randn(seed, shape, dtype="float32"):
+    """Standard normal numpy array (rounded to the dtype)."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(_T[dtype]).float().numpy()
+
+
+def _t(x, dtype="float32"):
+    """A torch copy of a numpy array in ``dtype``."""
+    return torch.tensor(np.array(x, np.float32)).to(_T[dtype])
+
+
+def _j(x, dtype="float32"):
+    """A private jax copy of a numpy array in ``dtype``."""
+    import jax.numpy as jnp
+    return jnp.asarray(np.array(x, np.float32, copy=True),
+                       jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    import jax.numpy as jnp
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _qkv(seed, B, S, H, KV, D, dtype):
+    return (_randn(seed, (B, S, H, D), dtype),
+            _randn(seed + 1, (B, S, KV, D), dtype),
+            _randn(seed + 2, (B, S, KV, D), dtype))
+
+
+# ---------------------------------------------------------------------------
+# the flash kernel's plain version against the Pallas kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+def test_flash_plain_matches_pallas_interpret(causal, window, dtype, J):
+    """Unaligned S = 100, GQA 8 heads over 2 KV heads, 32-row tiles in both
+    (so the same tiles are skipped), and at the CUDA kernel's own tiles."""
+    q, k, v = _qkv(0, 2, 100, 8, 2, 32, dtype)
+    want = J.fa.flash_attention(_j(q, dtype), _j(k, dtype), _j(v, dtype),
+                               causal=causal, window=window, blk_q=32,
+                               blk_k=32, interpret=True)
+    oracle = J.ref.attention_ref(_j(q, dtype), _j(k, dtype), _j(v, dtype),
+                                causal=causal, window=window)
+    got = fa.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                             causal=causal, window=window, blk_q=32,
+                             blk_k=32)
+    tiles = ops.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                                causal=causal, window=window)
+    mine = ref.attention_ref(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                             causal=causal, window=window)
+    assert got.dtype == tiles.dtype == _T[dtype]
+    assert got.shape == (2, 100, 8, 32)
+    for x in (got, tiles, mine):
+        np.testing.assert_allclose(_np(x), _np(want), atol=ATOL[dtype])
+        np.testing.assert_allclose(_np(x), _np(oracle), atol=ATOL[dtype])
+
+
+def test_flash_plain_bkgsd_layout_and_tile_skip(J):
+    """The (B, KV, G, Sq, D) entry, ragged Sq ≠ Sk tiles, and a window so
+    narrow that whole tiles are skipped: plain version ≡ the reference's
+    Pallas kernel in interpret mode at the same tiles."""
+    B, KV, G, Sq, D = 1, 2, 3, 70, 16
+    q = _randn(3, (B, KV, G, Sq, D))
+    k = _randn(4, (B, KV, Sq, D))
+    v = _randn(5, (B, KV, Sq, D))
+    want = J.fa.flash_attention_bkgsd(_j(q), _j(k), _j(v), causal=True,
+                                     window=9, blk_q=16, blk_k=8,
+                                     interpret=True)
+    got = fa.flash_attention_bkgsd(_t(q), _t(k), _t(v), causal=True,
+                                   window=9, blk_q=16, blk_k=8)
+    assert fa.launches["flash_attention"] == 0       # no kernel on the CPU
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+
+
+def test_flash_wrapper_checks_operands():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q, k.double(), k.double())
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention(torch.zeros(1, 8, 3, 16), k, k)
+    with pytest.raises(ValueError, match="G = 65"):
+        fa.kernel_tiles(65, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# attention functions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 5)])
+def test_naive_and_chunked_attention(causal, window, J):
+    q, k, v = _qkv(10, 2, 23, 4, 2, 16, "float32")
+    jq, jk, jv = _j(q), _j(k), _j(v)
+    want_naive = J.attn.naive_attention(jq, jk, jv, causal=causal,
+                                       window=window)
+    want_chunk = J.attn.chunked_attention(jq, jk, jv, causal=causal,
+                                         window=window, q_chunk=8,
+                                         kv_chunk=6)
+    got_naive = attn.naive_attention(_t(q), _t(k), _t(v), causal=causal,
+                                     window=window)
+    got_chunk = attn.chunked_attention(_t(q), _t(k), _t(v), causal=causal,
+                                       window=window, q_chunk=8, kv_chunk=6)
+    got_unroll = attn.chunked_attention(_t(q), _t(k), _t(v), causal=causal,
+                                        window=window, q_chunk=8,
+                                        kv_chunk=6, unroll=True)
+    np.testing.assert_allclose(_np(got_naive), _np(want_naive), atol=2e-6)
+    # bf16 probabilities and values in the PV product, in both packages
+    np.testing.assert_allclose(_np(got_chunk), _np(want_chunk), atol=2e-5)
+    np.testing.assert_allclose(_np(got_unroll), _np(got_chunk), atol=1e-6)
+
+
+@pytest.mark.parametrize("per_seq", [False, True], ids=["scalar", "per_seq"])
+def test_decode_attention_and_cache_insert(per_seq, J):
+    """cache_insert writes in place (and returns the same dict); with a
+    window of 5 the cache is a ring of 5 and position 7 lands in slot 2."""
+    kw = dict(name="t", family="dense", n_layers=2, d_model=32, n_heads=4,
+              n_kv_heads=2, d_ff=48, vocab_size=64, sliding_window=5)
+    cfg, pcfg = J.ModelConfig(**kw), ModelConfig(**kw)
+    B, C, KV, D = 3, 5, 2, 8
+    ck, cv = _randn(20, (B, C, KV, D)), _randn(21, (B, C, KV, D))
+    kn, vn = _randn(22, (B, 1, KV, D)), _randn(23, (B, 1, KV, D))
+    q = _randn(24, (B, 1, 4, D))
+    pos = np.array([7, 3, 11], np.int32) if per_seq else np.int32(7)
+    jc = J.attn.cache_insert({"k": _j(ck), "v": _j(cv)}, _j(kn), _j(vn),
+                            J.jnp.asarray(pos))
+    cache = {"k": _t(ck), "v": _t(cv)}
+    k_storage = cache["k"].data_ptr()
+    got = attn.cache_insert(cache, _t(kn), _t(vn), torch.tensor(pos))
+    assert got is cache and got["k"].data_ptr() == k_storage
+    np.testing.assert_array_equal(_np(got["k"]), _np(jc["k"]))
+    np.testing.assert_array_equal(_np(got["v"]), _np(jc["v"]))
+    slots = np.broadcast_to(pos, (B,)) % C
+    for b in range(B):
+        np.testing.assert_array_equal(_np(got["k"])[b, slots[b]], kn[b, 0])
+    lens = np.minimum(pos + 1, C)
+    want = J.attn.decode_attention(_j(q), jc["k"], jc["v"],
+                                   J.jnp.asarray(lens),
+                                   window=cfg.sliding_window)
+    out = attn.decode_attention(_t(q), got["k"], got["v"],
+                                torch.tensor(lens), window=5)
+    np.testing.assert_allclose(_np(out), _np(want), atol=2e-6)
+    # the sliding-window cache holds the window, not the sequence
+    kv = transformer.init_caches(pcfg, 2, 64, device="cpu")
+    assert kv["block_0"]["k"].shape == (2, 2, 5, 2, 8)
+
+
+def test_attention_decode_positions_by_dim():
+    """A 0-dim position broadcasts one RoPE angle over the batch, a (B,)
+    position gives each sequence its own: equal positions, equal result."""
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=32,
+                      n_heads=4, n_kv_heads=2, d_ff=48, vocab_size=64)
+    from repro_torch.config import RunConfig
+    p = attn.init_attention(torch.Generator().manual_seed(0), cfg,
+                            torch.float32, "cpu")
+    x = torch.randn(3, 1, 32, generator=torch.Generator().manual_seed(1))
+    a = attn.init_kv_cache(cfg, 3, 8, torch.float32, "cpu")
+    b = attn.init_kv_cache(cfg, 3, 8, torch.float32, "cpu")
+    oa, _ = attn.attention_decode(cfg, RunConfig(), p, x,
+                                  torch.tensor(4, dtype=torch.int32), a)
+    ob, _ = attn.attention_decode(cfg, RunConfig(), p, x,
+                                  torch.full((3,), 4, dtype=torch.int32), b)
+    torch.testing.assert_close(oa, ob, rtol=0, atol=0)
+    torch.testing.assert_close(a["k"], b["k"], rtol=0, atol=0)
+    assert a["k"][:, 4].abs().sum() > 0 and a["k"][:, 5:].abs().sum() == 0
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_rope_swiglu(dtype, J):
+    x = _randn(30, (2, 6, 4, 16), dtype)
+    scale = _randn(31, (16,), dtype)
+    tol = {"float32": 2e-6, "bfloat16": 1e-2}[dtype]
+    np.testing.assert_allclose(
+        _np(layers.rms_norm(_t(x, dtype), _t(scale, dtype))),
+        _np(J.layers.rms_norm(_j(x, dtype), _j(scale, dtype))), atol=tol)
+    np.testing.assert_array_equal(layers.rope_frequencies(16, 1e6),
+                                  J.layers.rope_frequencies(16, 1e6))
+    pos = np.arange(6)
+    np.testing.assert_allclose(
+        _np(layers.apply_rope(_t(x, dtype), torch.tensor(pos), 1e6)),
+        _np(J.layers.apply_rope(_j(x, dtype), J.jnp.asarray(pos), 1e6)),
+        atol=tol)
+    h = _randn(32, (2, 6, 16), dtype)
+    p = {"w_gate": _randn(33, (16, 24), dtype),
+         "w_up": _randn(34, (16, 24), dtype),
+         "w_down": _randn(35, (24, 16), dtype)}
+    got = layers.swiglu(_t(h, dtype), {k: _t(w, dtype) for k, w in p.items()})
+    want = J.layers.swiglu(_j(h, dtype), {k: _j(w, dtype)
+                                         for k, w in p.items()})
+    assert got.dtype == _T[dtype]
+    # sums of 16 and 24 products of unit-scale values: a few bf16 ulps
+    np.testing.assert_allclose(_np(got), _np(want),
+                               atol=1e-4 if dtype == "float32" else 0.25)
+
+
+# ---------------------------------------------------------------------------
+# caches: one allocation per unit
+# ---------------------------------------------------------------------------
+def test_unit_caches_do_not_alias():
+    """The reference broadcasts one unit's zero cache over n_units; in torch
+    that would be one storage for every unit.  The port allocates them, so
+    a decode step writes each unit's K/V into its own slice."""
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model, model_decode_step
+    cfg = dataclasses.replace(get_smoke("qwen2_1_5b"), dtype="float32")
+    params = init_model(cfg, 0, device="cpu")
+    caches = transformer.init_caches(cfg, 2, 8, device="cpu")
+    k = caches["block_0"]["k"]
+    assert k.shape[0] == cfg.n_units == 2 and 0 not in k.stride()
+    assert k.is_contiguous()
+    ptr = k.data_ptr()
+    _, out = model_decode_step(cfg, RunConfig(), params,
+                               torch.tensor([[3], [4]], dtype=torch.int32),
+                               0, caches)
+    assert out is caches and out["block_0"]["k"].data_ptr() == ptr
+    k0, k1 = k[0, :, 0], k[1, :, 0]
+    assert k0.abs().sum() > 0 and k1.abs().sum() > 0
+    assert not torch.equal(k0, k1)          # each unit its own K
+    assert k[:, :, 1:].abs().sum() == 0     # nothing past position 0
+
+
+# ---------------------------------------------------------------------------
+# on the card: the CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA flash-attention kernel)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
+@pytest.mark.parametrize("H,KV,D", [(12, 2, 128), (8, 2, 32), (4, 4, 16)])
+def test_flash_kernel_matches_plain_on_card(H, KV, D, causal, window, dtype,
+                                            cuda):
+    """Tolerance: 2e-5 absolute in fp32 (exp and the summation order
+    differ, FMAs are allowed); in bf16 one ulp of the larger output plus
+    that 2e-5 (fp32 values that far apart, each rounded once)."""
+    q, k, v = _qkv(40, 2, 201, H, KV, D, dtype)
+    tq, tk, tv = (_t(x, dtype).to(cuda) for x in (q, k, v))
+    fa.reset_launches()
+    out = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert fa.launches["flash_attention"] == 1
+    G = H // KV
+    bq, bk = fa.kernel_tiles(G, 201, 201)
+    plain = fa.flash_attention_bkgsd_plain(
+        tq.reshape(2, 201, KV, G, D).permute(0, 2, 3, 1, 4),
+        tk.permute(0, 2, 1, 3), tv.permute(0, 2, 1, 3), causal=causal,
+        window=window, blk_q=bq, blk_k=bk).permute(0, 3, 1, 2, 4).reshape(
+            2, 201, H, D)
+    torch.cuda.synchronize()
+    assert out.dtype == _T[dtype] and bool(torch.isfinite(out).all())
+    if dtype == "float32":
+        assert float((out - plain).abs().max()) <= 2e-5
+    else:
+        a, b = out.float(), plain.float()
+        m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+        assert bool(((a - b).abs() <= ulp + 2e-5).all())
+    np.testing.assert_allclose(_np(out.cpu()), _np(ref.attention_ref(
+        _t(q, dtype), _t(k, dtype), _t(v, dtype), causal=causal,
+        window=window)), atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_other_tiles(cuda):
+    q = torch.zeros(1, 64, 4, 16, device=cuda)
+    k = torch.zeros(1, 64, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="tiles"):
+        fa.flash_attention(q, k, k, blk_q=8)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(torch.zeros(1, 8, 4, 24, device=cuda),
+                           torch.zeros(1, 8, 2, 24, device=cuda),
+                           torch.zeros(1, 8, 2, 24, device=cuda))

@@ -6,8 +6,10 @@
   interpreter that imports the whole package and then looks for them).
 * The entry points run on the card unless the caller asks for the CPU:
   without a card, ``driver.run`` / ``driver.execute`` / ``engine.replay``
-  (and the legacy oracle: ``simulate``, the baselines, ``engine="legacy"``)
-  called with no ``device=`` raise instead of quietly using the CPU.
+  (and the legacy oracle: ``simulate``, the baselines, ``engine="legacy"``;
+  and the serving path's ``init_model``, ``init_caches``,
+  ``init_serve_state``) called with no ``device=`` raise instead of
+  quietly using the CPU.
 """
 
 import ast
@@ -47,9 +49,14 @@ def test_port_file_list_is_complete():
                      "experiments/carry.py", "core/simulator.py",
                      "core/baselines.py", "core/protocols.py",
                      "kernels/ps_update.py", "kernels/ops.py",
-                     "kernels/ref.py"):
+                     "kernels/ref.py", "kernels/flash_attention.py",
+                     "models/__init__.py", "models/layers.py",
+                     "models/attention.py", "models/blocks.py",
+                     "models/transformer.py", "serve/engine.py",
+                     "serve/scheduler.py"):
         assert expected in names
-    for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh"):
+    for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
+                   "flash_attention.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file()
 
 
@@ -67,6 +74,8 @@ def test_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "import repro_torch.kernels.replay_ring, repro_torch.configs\n"
             "import repro_torch.kernels.ps_update, repro_torch.kernels.ops\n"
             "import repro_torch.core.baselines\n"
+            "import repro_torch.models, repro_torch.serve.scheduler\n"
+            "import repro_torch.kernels.flash_attention\n"
             "from repro_torch.configs import get_config\n"
             "get_config('qwen2_1_5b')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -145,3 +154,22 @@ def test_legacy_entry_points_raise_without_card(no_card):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     assert simulate(spec.run, device="cpu", **kw).updates == 4
+
+
+def test_serving_entry_points_raise_without_card(no_card):
+    import dataclasses
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_caches, init_model
+    from repro_torch.serve.engine import generate, init_serve_state
+    cfg = dataclasses.replace(get_smoke("qwen2_1_5b"), dtype="float32")
+    for call in (lambda: init_model(cfg),
+                 lambda: init_model(cfg, 0),
+                 lambda: init_caches(cfg, 1, 4),
+                 lambda: init_serve_state(cfg, 1, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # generate runs where the parameters are: here, where it was asked
+    params = init_model(cfg, 0, device="cpu")
+    out = generate(cfg, RunConfig(), params, [[1, 2, 3]], 2)
+    assert out.shape == (1, 2) and out.device.type == "cpu"
