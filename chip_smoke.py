@@ -7,8 +7,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN,
    and bf16 matmuls reduce in fp32
-   (``allow_bf16_reduced_precision_reduction = False``), which phase 8's
-   prefill-vs-decode comparison relies on.
+   (``allow_bf16_reduced_precision_reduction = False``), which the
+   serving phases' prefill-vs-decode comparisons rely on.
 2. Build: every CUDA source under ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, all started together); each build's
    seconds.
@@ -23,7 +23,18 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    once through the (B, KV, G, S, D) entry with Sq ≠ Sk.  Tolerance: 2e-5
    absolute in fp32 (exp and the summation order differ, FMAs allowed) and
    in bf16 one ulp of the output plus the same 2e-5 (fp32 values that
-   differ by that, rounded once each).
+   differ by that, rounded once each); and at zamba2_7b's attention
+   (H = KV = 32, D = 112), causal.  Then ``ssm_scan`` at zamba2_7b's mamba
+   head (H 112, P 64, N 64, chunk 256; dt in [1e-3, 0.1], A = −(1…112))
+   with B / C as column slices of one tensor in bf16 and in fp32, and
+   ``wkv6`` at rwkv6_7b's head (H 64, P 64, chunk 32) with r / k / v in
+   bf16 and fp32, at the model's decay and at one whose exp above the
+   diagonal overflows; B 2, a ragged S = 1 000; the output and the final
+   state each held within (1e-5 + 2⁻²⁰ · span) of the plain version's
+   largest magnitude, span the largest cumulative log decay of a chunk
+   (fp32 sums in another order with FMAs, plus eight ulps of the
+   cumulative decay, whose rounding every decay term exp(cum_i − cum_j)
+   inherits in both versions).
 4. The paper's shape: ``mlp_teacher`` at its defaults (D = 2 762),
    1-softsync λ = 30, μ = 4, momentum, 300 updates, eval every 100 —
    through ``driver.run``; held against the same run through the plain
@@ -53,27 +64,38 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    event (``torch.addmv``, where one exists); ``flash_attention`` at one
    layer of the prefill_32k shape (B 1, KV 2, G 6, S 32 768, D 128, causal,
    bf16) beside its plain version, ``scaled_dot_product_attention`` (the
-   yardstick; the port never calls it) and its bound.
+   yardstick; the port never calls it) and its bound; the same at one
+   layer of zamba2_7b's prefill (B 1, H = KV = 32, S 8 192, D 112); and
+   ``ssm_scan`` and ``wkv6`` at one layer of their model's prefill (B 1,
+   S 8 192, bf16 operands) beside their plain versions and bounds (no
+   PyTorch call computes either: no library time).
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
-   ``serve/engine.py`` with ``attn_impl="pallas"``: ``prefill_step`` of one
-   8 192-token prompt (exactly 28 flash launches, finite logits, tokens per
-   second); at a 64-token prompt and B = 2, ``prefill_step``'s logits
-   against the decode-replay ``prefill``'s and against ``attn_impl="naive"``
-   — printed in bf16, and held within 1e-3 on the same weights in fp32
-   (fp32 rounding orders; bf16 at 28 layers differs by more than the
-   2-layer reference test's 7e-2 between any two of the three, so it is
-   reported, not held);
-   ``generate`` (B 4, 16 prompt and 32 new tokens, decode tokens per
-   second); ``ContinuousBatchingEngine`` answering 6 requests in 4 slots,
-   each with its 8 tokens; peak device memory.  Then the ``kernels`` JSON
-   line, the ``nvidia-smi`` line and, last,
+   ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
+   ``prefill_step`` of one 8 192-token prompt (exactly 28 flash launches,
+   finite logits, tokens per second); at a 64-token prompt and B = 2,
+   ``prefill_step``'s logits against the decode-replay ``prefill``'s and
+   against ``attn_impl="naive", use_pallas=False`` (the plain versions) —
+   printed in bf16, and held within 1e-3 on the same weights in fp32 (fp32
+   rounding orders; bf16 at 28 layers differs by more than the 2-layer
+   reference test's 7e-2 between any two of the three, so it is reported,
+   not held); ``generate`` (B 4, 16 prompt and 32 new tokens, decode
+   tokens per second); ``ContinuousBatchingEngine`` answering 6 requests
+   in 4 slots, each with its 8 tokens; peak device memory.
+9. The same for zamba2_7b (81 layers: 27 units of shared attention and two
+   mamba blocks, 4 645 909 472 parameters): exactly 54 ``ssm_scan`` and 27
+   ``flash_attention`` launches per prefill forward; fp32 held within
+   1e-2 (``SERVING``: 81 layers of random weights amplify rounding).
+10. The same for rwkv6_7b (32 rwkv layers, 6 997 544 960 parameters):
+   exactly 32 ``wkv6`` launches per prefill forward; fp32 held within
+   1e-3.  Each model is freed before the next.  Then the ``kernels`` JSON
+   line (all six TPU kernels), the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": ...}``.
 
 Launch counts are zeroed just before each main-path phase (4, 4b, 5, 5b,
-6, and each run of phase 8) and read just after it; they must equal the
-update counts (phase 8: one flash launch per layer of a prefill forward,
-none in decode).
+6, and each run of phases 8–10) and read just after it; they must equal the
+update counts (phases 8–10: one kernel launch per attention, mamba or rwkv
+layer of a prefill forward, none in decode).
 """
 
 import dataclasses
@@ -352,17 +374,17 @@ def counted(fn):
     """``fn()`` with every kernel's launch count zeroed just before and
     read just after; returns (result, seconds, launches)."""
     import torch
-    from repro_torch.kernels import flash_attention, ps_update, replay_ring
+    from repro_torch.kernels import (flash_attention, ps_update,
+                                     replay_ring, ssm_scan, wkv6)
+    mods = (replay_ring, ps_update, flash_attention, ssm_scan, wkv6)
     torch.cuda.synchronize()
-    replay_ring.reset_launches()
-    ps_update.reset_launches()
-    flash_attention.reset_launches()
+    for m in mods:
+        m.reset_launches()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return res, secs, {**replay_ring.launches, **ps_update.launches,
-                       **flash_attention.launches}
+    return res, secs, {k: v for m in mods for k, v in m.launches.items()}
 
 
 def drive(spec, dev):
@@ -373,7 +395,7 @@ def drive(spec, dev):
 
 def expect(counts, what, **want):
     full = {"ring_apply": 0, "ring_apply_whatif": 0, "ps_apply": 0,
-            "flash_attention": 0, **want}
+            "flash_attention": 0, "ssm_scan": 0, "wkv6": 0, **want}
     if counts != full:
         raise AssertionError(f"{what} launches {counts}, expected {full}")
 
@@ -704,6 +726,7 @@ FLASH_CELLS = (   # (B, Sq, Sk, H, KV, D, causal, window, bkgsd entry)
     (2, 1000, 1000, 12, 2, 128, True, 48, False),
     (2, 1000, 1000, 12, 2, 128, False, 0, False),
     (1, 1000, 777, 12, 2, 128, False, 0, True),
+    (2, 1000, 1000, 32, 32, 112, True, 0, False),     # zamba2's attention
 )
 
 
@@ -803,16 +826,17 @@ def flash_live_tiles(S, G, causal, window):
     return live, G * bq, fa.BLK_K
 
 
-def time_flash(dev, S):
-    """One layer of the prefill_32k shape: B 1, KV 2, G 6, D 128, causal,
-    bf16.  Kernel, plain version and ``scaled_dot_product_attention`` (the
-    yardstick) on the same inputs; the bound is the larger of bytes over
-    HBM rate and the live tiles' fp32 operations over the CUDA cores' fp32
-    rate (the design's: FMAs allowed, no tensor cores)."""
+def time_flash(dev, S, H=12, KV=2, D=128):
+    """One causal bf16 attention layer at B 1: by default qwen2_1_5b's
+    (KV 2, G 6, D 128; the prefill_32k shape at S = 32 768).  Kernel,
+    plain version and ``scaled_dot_product_attention`` (the yardstick) on
+    the same inputs; the bound is the larger of bytes over HBM rate and the
+    live tiles' fp32 operations over the CUDA cores' fp32 rate (the
+    design's: FMAs allowed, no tensor cores)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, H, KV, D = 1, 12, 2, 128
+    B = 1
     q, k, v = flash_inputs(B, S, S, H, KV, D, torch.bfloat16, 23, dev)
     kern, plain = flash_pair(q, k, v, True, 0, False)
     err = flash_check(kern, plain, f"flash_attention at S={S}")
@@ -857,8 +881,228 @@ def time_flash(dev, S):
 
 
 # ---------------------------------------------------------------------------
+# the scan kernels: ssm_scan and wkv6
+# ---------------------------------------------------------------------------
+SSM_HEAD = dict(H=112, P=64, N=64, chunk=256)   # zamba2_7b's mamba layer
+WKV_HEAD = dict(H=64, P=64, chunk=32)           # rwkv6_7b's rwkv layer
+
+
+def decay_span(a, chunk) -> float:
+    """The largest |cumulative log decay| within one chunk (a ≤ 0 along
+    dim 1, so the chunk's total)."""
+    import torch
+    S = a.shape[1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    x = torch.nn.functional.pad(a.double(),
+                                (0, 0) * (a.dim() - 2) + (0, nc * Q - S))
+    return float(-x.reshape(a.shape[0], nc, Q, *a.shape[2:]).sum(2).min())
+
+
+def scan_check(got, want, span, what):
+    """Raise unless max |got − want| ≤ (1e-5 + 2⁻²⁰·span)·max |want|:
+    fp32 sums in another order with FMAs, plus eight fp32 ulps of the
+    largest cumulative log decay of a chunk (``span``), whose rounding
+    every decay term exp(cum_i − cum_j) of a chunked scan inherits in both
+    versions; returns (max |got − want|, its share of that limit)."""
+    import torch
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    lim = (1e-5 + 2.0 ** -20 * span) * float(want.abs().max())
+    if err > lim:
+        raise AssertionError(f"{what}: max |kernel - plain| = {err} > {lim}")
+    return err, err / lim
+
+
+def ssm_inputs(B, S, H, P, N, bc_dtype, seed, dev):
+    """The mamba block's scan operands at zamba2's decay: dt in [1e-3, 0.1]
+    (softplus of dt_bias spans it), A = −(1…H) (A_log = log(1…H)), x·dt,
+    and B, C as column slices of one (B, S, 2N) tensor in ``bc_dtype``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.rand(B, S, H, generator=gen, device=dev) * 0.099 + 1e-3
+    x = torch.randn(B, S, H, P, generator=gen, device=dev) * dt[..., None]
+    a = dt * -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+    bc = torch.randn(B, S, 2 * N, generator=gen, device=dev).to(bc_dtype)
+    return x, a, bc[..., :N], bc[..., N:]
+
+
+def wkv_inputs(B, S, H, P, dtype, strong, seed, dev):
+    """The rwkv block's WKV operands: r, k, v in ``dtype``; w = −exp(z),
+    z ~ N(−6, 0.5²) (decay_w0 = −6 and the LoRA's spread) or, ``strong``,
+    z ~ N(2.5, 0.5²) (a chunk's decay sums past −88: exp of the pair term's
+    argument for j ≥ i overflows); u ~ 0.1·N(0, 1) (bonus_u's init)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    r, k, v = (randn(B, S, H, P).mul(0.5).to(dtype) for _ in range(3))
+    w = -torch.exp(randn(B, S, H, P) * 0.5 + (2.5 if strong else -6.0))
+    return r, k, v, w, randn(H, P) * 0.1
+
+
+def held_pair(kern, plain, ops, chunk, a, what):
+    """Kernel and plain version of a scan on the same operands (``a``: the
+    log decay), held for the output and the final state; returns (max
+    |kernel − plain| over both, the larger share of its limit), and logs
+    both."""
+    y, st = kern(*ops, chunk=chunk)
+    py, pst = plain(*ops, chunk=chunk)
+    span = decay_span(a, chunk)
+    (ey, ry), (es, rs) = (scan_check(y, py, span, f"{what} output"),
+                          scan_check(st, pst, span, f"{what} state"))
+    log(f"  {what}: max|kernel-plain| = {ey} output ({ry:.3f} of the "
+        f"limit, max |plain| {float(py.abs().max()):.4g}), {es} state "
+        f"({rs:.3f}); largest chunk decay {span:.1f}")
+    return max(ey, es), max(ry, rs)
+
+
+def ssm_pair(ops, chunk, what):
+    from repro_torch.kernels import ssm_scan as sk
+    return held_pair(sk.ssm_scan, sk.ssm_scan_plain, ops, chunk, ops[1],
+                     what)
+
+
+def wkv_pair(ops, chunk, what):
+    from repro_torch.kernels import wkv6 as wk
+    return held_pair(wk.wkv6, wk.wkv6_plain, ops, chunk, ops[3], what)
+
+
+def phase_scans_vs_plain(dev) -> dict:
+    """``ssm_scan`` at zamba2's mamba head and ``wkv6`` at rwkv6's, B 2 and
+    a ragged S = 1 000, B/C (r/k/v) in bf16 as the bf16 models pass them
+    and in fp32 as the fp32 ones do; wkv6 also at a decay whose exp above
+    the diagonal overflows."""
+    import torch
+    worst = {"ssm_scan": 0.0, "wkv6": 0.0}
+    h = SSM_HEAD
+    for dt in (torch.bfloat16, torch.float32):
+        ops = ssm_inputs(2, 1000, h["H"], h["P"], h["N"], dt, 15, dev)
+        what = (f"ssm_scan B=2 S=1000 H={h['H']} P={h['P']} N={h['N']} "
+                f"chunk={h['chunk']} B/C {str(dt)[6:]}")
+        err, _ = ssm_pair(ops, h["chunk"], what)
+        worst["ssm_scan"] = max(worst["ssm_scan"], err)
+    h = WKV_HEAD
+    for dt in (torch.bfloat16, torch.float32):
+        for strong in (False, True):
+            ops = wkv_inputs(2, 1000, h["H"], h["P"], dt, strong, 16, dev)
+            what = (f"wkv6 B=2 S=1000 H={h['H']} P={h['P']} "
+                    f"chunk={h['chunk']} r/k/v {str(dt)[6:]} "
+                    f"{'strong' if strong else 'model'} decay")
+            err, _ = wkv_pair(ops, h["chunk"], what)
+            worst["wkv6"] = max(worst["wkv6"], err)
+    return worst
+
+
+def chunk_rows(S, Q):
+    """The row counts of the chunks of a length-S scan."""
+    return [min(Q, S - c) for c in range(0, S, Q)]
+
+
+def ssm_cost(B, S, H, P, N, Q, bc_bytes):
+    """(bytes, fp32 ops) of one ``ssm_scan``: x, a, B and C read once, y and
+    the state written once.  Per (b, chunk of q rows, T = q(q+1)/2 pairs
+    j ≤ i): C·Bᵀ once (B and C are shared by the heads), 2TN; per head the
+    decay (a difference, an exp and a product per pair), the decayed
+    product 2TP, the inter-chunk term 2qNP + qP + q, the state update
+    2qNP + qP + q + NP and the cumulative sum q."""
+    ops = 0
+    for q in chunk_rows(S, Q):
+        T = q * (q + 1) // 2
+        ops += 2 * T * N + H * (3 * T + 2 * T * P + 4 * q * N * P
+                                + 2 * q * P + 3 * q + N * P)
+    nbytes = 8 * B * S * H * P + 4 * B * S * H + 2 * B * S * N * bc_bytes \
+        + 4 * B * H * N * P
+    return nbytes, B * ops
+
+
+def wkv_cost(B, S, H, P, Q, rkv_bytes):
+    """(bytes, fp32 ops) of one ``wkv6``: r, k, v, w and u read once, out
+    and the state written once.  Per (b, h, chunk of q rows): the
+    cumulative sums and their differences 2qP, r·exp(cum⁻) 2qP, the pair
+    term q(q−1)/2·P × (difference, exp, two products, sum), the bonus 3qP,
+    the inter-chunk term 2qP², the pair and bonus terms against v
+    q(q+1)·P, the state decay P + P², k·exp(cum_Q − cum) 3qP and the state
+    update 2qP²."""
+    ops = 0
+    for q in chunk_rows(S, Q):
+        ops += (10 * q * P + 5 * P * q * (q - 1) // 2 + 4 * q * P * P
+                + P * q * (q + 1) + P + P * P)
+    nbytes = (3 * rkv_bytes + 8) * B * S * H * P + 4 * H * P \
+        + 4 * B * H * P * P
+    return nbytes, B * H * ops
+
+
+def scan_bound(nbytes, nops):
+    """The larger of bytes over HBM rate and fp32 operations over the CUDA
+    cores' fp32 rate (FMAs allowed), and which one bounds."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_scan(name, ops, chunk, cost, dev):
+    """Per-launch time of ``ssm_scan`` / ``wkv6`` at the prefill shape
+    beside its plain version and its bound (no PyTorch call computes
+    either function: library_ms is None); holds kernel and plain version
+    first."""
+    import torch
+    from repro_torch.kernels import ssm_scan as sk
+    from repro_torch.kernels import wkv6 as wk
+    kern, plain, pair = ((sk.ssm_scan, sk.ssm_scan_plain, ssm_pair)
+                         if name == "ssm_scan"
+                         else (wk.wkv6, wk.wkv6_plain, wkv_pair))
+    err, _ = pair(ops, chunk, f"{name} at the prefill shape")
+    ms = cuda_ms(lambda: kern(*ops, chunk=chunk), 5)
+    plain_ms = cuda_ms(lambda: plain(*ops, chunk=chunk), 2)
+    nbytes, nops = cost
+    bms, by = scan_bound(nbytes, nops)
+    log(f"  {name} B=1 S={ops[0].shape[1]} {tuple(ops[0].shape[2:])} "
+        f"chunk={chunk}: {ms:.4f} ms (plain {plain_ms:.4f} ms; bound "
+        f"{bms:.4f} ms by {by}: {nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} "
+        f"Gflop at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32; "
+        f"{nops / (ms * 1e-3) / 1e12:.2f} TFLOP/s and "
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
+    del ops
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err, "library_ms": None}
+
+
+def time_scans(dev):
+    """Both scan kernels at one layer of their model's prefill: B 1,
+    S 8 192, bf16 operands as the bf16 models pass them."""
+    import torch
+    S, h = 8192, SSM_HEAD
+    t_ssm = time_scan("ssm_scan", ssm_inputs(1, S, h["H"], h["P"], h["N"],
+                                             torch.bfloat16, 24, dev),
+                      h["chunk"], ssm_cost(1, S, h["H"], h["P"], h["N"],
+                                           h["chunk"], 2), dev)
+    h = WKV_HEAD
+    t_wkv = time_scan("wkv6", wkv_inputs(1, S, h["H"], h["P"],
+                                         torch.bfloat16, False, 25, dev),
+                      h["chunk"], wkv_cost(1, S, h["H"], h["P"], h["chunk"],
+                                           2), dev)
+    return t_ssm, t_wkv
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
+# The serving phases: (phase, architecture, fp32 prefill-vs-decode limit).
+# qwen2_1_5b's 28 layers hold 1e-3.  zamba2_7b's 81 layers of random
+# weights amplify fp32 rounding differences more (its mamba decode is the
+# step-by-step recurrence, its prefill the chunked scan), so 1e-2 there —
+# still orders of magnitude under what a state that does not advance, a
+# wrong decay or a cache written in the wrong unit gives.
+SERVING = ((8, "qwen2_1_5b", 1e-3), (9, "zamba2_7b", 1e-2),
+           (10, "rwkv6_7b", 1e-3))
+
+
 def tree_to(tree, dtype):
     """A copy of a nested dict of tensors in ``dtype``."""
     if isinstance(tree, dict):
@@ -866,54 +1110,88 @@ def tree_to(tree, dtype):
     return tree.to(dtype)
 
 
-def consistency(cfg, params, toks, launches, dev, label):
-    """prefill_step (flash kernel) against the decode-replay prefill and
-    against ``attn_impl="naive"`` on the same prompt; returns the max
-    |diff| of each over the live vocab."""
+def expected_params(cfg) -> int:
+    """The port's parameter count from ``ModelConfig.param_count``, which
+    counts the unpadded vocab (embedding and head), no final norm, two
+    norms and no convolution biases per mamba block (the tree has one norm
+    and Din + 2N biases), and seven d_model vectors per rwkv block (the
+    tree has eight: five token-shift mixes, mu_ck, decay_w0, ln_x_scale)."""
+    M = cfg.d_model
+    per_unit = 0
+    for b in cfg.block_pattern:
+        if b == "mamba":
+            per_unit += cfg.ssm_d_inner + 2 * cfg.ssm_state - M
+        elif b == "rwkv":
+            per_unit += M
+    return (cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab_size) * M
+            + M + cfg.n_units * per_unit)
+
+
+def forward_launches(cfg) -> dict:
+    """Kernel launches of one prefill forward: one flash_attention per
+    attention layer (zamba2's shared ones too), one ssm_scan per mamba
+    layer, one wkv6 per rwkv layer."""
+    def n(*types):
+        return cfg.n_units * sum(b in types for b in cfg.block_pattern)
+    return {"flash_attention": n("attn", "shared_attn"),
+            "ssm_scan": n("mamba"), "wkv6": n("rwkv")}
+
+
+def add_launches(launches, counts):
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def consistency(cfg, params, toks, launches, dev, label, phase):
+    """prefill_step (the kernels) against the decode-replay prefill and
+    against ``attn_impl="naive", use_pallas=False`` (plain attention and
+    plain scans) on the same prompt; returns the max |diff| of each over
+    the live vocab."""
     import torch
     from repro_torch.config import RunConfig
     from repro_torch.serve.engine import (init_serve_state, prefill,
                                           prefill_step)
-    run = RunConfig(attn_impl="pallas")
+    run = RunConfig(attn_impl="pallas", use_pallas=True)
     B, S = toks.shape
     full, _, counts = counted(lambda: prefill_step(cfg, run, params,
                                                    {"tokens": toks}))
-    launches["flash_attention"] += counts["flash_attention"]
-    expect(counts, f"phase 8 consistency {label}",
-           flash_attention=cfg.n_layers)
+    add_launches(launches, counts)
+    expect(counts, f"phase {phase} consistency {label}",
+           **forward_launches(cfg))
     (dec, _), dsecs, counts = counted(lambda: prefill(
         cfg, run, params, {"tokens": toks},
         init_serve_state(cfg, B, S, device=dev)))
-    expect(counts, f"phase 8 decode replay {label}")
+    expect(counts, f"phase {phase} decode replay {label}")
     naive = prefill_step(cfg, RunConfig(attn_impl="naive"), params,
                          {"tokens": toks})
     v = cfg.vocab_size
     full, dec, naive = full[..., :v], dec[..., :v], naive[..., :v]
     for x in (full, dec, naive):
         if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"phase 8 {label}: non-finite logits")
+            raise AssertionError(f"phase {phase} {label}: non-finite logits")
     out = {"decode": float((full - dec).abs().max()),
            "naive": float((full - naive).abs().max())}
     same = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
     log(f"  {label}, B={B} S={S}: max |prefill_step - decode-replay "
-        f"prefill| = {out['decode']}, max |pallas - naive attention| = "
+        f"prefill| = {out['decode']}, max |kernels - plain versions| = "
         f"{out['naive']} (logits span {float(full.min()):.3f} to "
         f"{float(full.max()):.3f}); greedy tokens equal at {same:.4f} of "
         f"positions; decode replay {S / dsecs:.1f} steps/s")
     return out
 
 
-def phase_serving(dev, launches):
-    """qwen2_1_5b at full width and depth through the serving engine."""
+def phase_serving(phase, arch, fp32_limit, dev, launches):
+    """One architecture at full width and depth through the serving
+    engine."""
     import torch
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
     from repro_torch.models import count_params, init_model
-    from repro_torch.serve.engine import (generate, init_serve_state,
-                                          prefill, prefill_step)
+    from repro_torch.serve.engine import generate, prefill_step
     from repro_torch.serve.scheduler import ContinuousBatchingEngine
-    cfg = get_config("qwen2_1_5b")
-    run = RunConfig(attn_impl="pallas")
+    cfg = get_config(arch)
+    run = RunConfig(attn_impl="pallas", use_pallas=True)
+    per_forward = forward_launches(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -921,17 +1199,17 @@ def phase_serving(dev, launches):
     params = init_model(cfg, gen, device=dev)
     torch.cuda.synchronize()
     n = count_params(params)
-    # ModelConfig.param_count counts the unpadded vocab and no final norm
-    want = cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab_size) \
-        * cfg.d_model + cfg.d_model
-    if n != want:
-        raise AssertionError(f"phase 8: {n} parameters, expected {want}")
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.padded_vocab} (padded), {cfg.dtype}: {n} parameters "
-        f"(ModelConfig.param_count {cfg.param_count()} + the vocab "
-        f"padding and the final norm), drawn in "
-        f"{time.perf_counter() - t0:.2f} s")
+    if n != expected_params(cfg):
+        raise AssertionError(f"phase {phase}: {n} parameters, expected "
+                             f"{expected_params(cfg)}")
+    log(f"  {cfg.name}: {cfg.n_layers} layers {cfg.block_pattern} x "
+        f"{cfg.n_units}, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab} (padded), {cfg.dtype}: {n} parameters "
+        f"(ModelConfig.param_count {cfg.param_count()} + "
+        f"{n - cfg.param_count()}: the vocab padding, the final norm and the "
+        f"leaves it does not count, see expected_params), drawn in "
+        f"{time.perf_counter() - t0:.2f} s; kernel launches per prefill "
+        f"forward {per_forward}")
 
     def tokens(B, S):
         return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
@@ -943,33 +1221,32 @@ def phase_serving(dev, launches):
     for rep in range(2):
         logits, secs, counts = counted(lambda: prefill_step(
             cfg, run, params, {"tokens": prompt}))
-        launches["flash_attention"] += counts["flash_attention"]
-        expect(counts, "phase 8 prefill", flash_attention=cfg.n_layers)
+        add_launches(launches, counts)
+        expect(counts, f"phase {phase} prefill", **per_forward)
         if tuple(logits.shape) != (1, 8192, cfg.padded_vocab) or not bool(
                 torch.isfinite(logits[..., :cfg.vocab_size]).all()):
-            raise AssertionError("phase 8: bad prefill logits")
+            raise AssertionError(f"phase {phase}: bad prefill logits")
         log(f"  prefill_step B=1 S=8192 (run {rep + 1}): {secs:.4f} s, "
-            f"{8192 / secs:.1f} tokens/s; flash_attention launches "
-            f"{counts['flash_attention']}; logits finite, "
+            f"{8192 / secs:.1f} tokens/s; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; logits finite, "
             f"{tuple(logits.shape)}")
         del logits
     torch.cuda.empty_cache()
 
-    # 2. prefill vs decode replay vs the naive attention, B = 2, S = 64: in
+    # 2. prefill vs decode replay vs the plain versions, B = 2, S = 64: in
     # bf16 as configured (reported), and on the same weights in fp32, held
-    # at 1e-3
     toks = tokens(2, 64)
-    d = consistency(cfg, params, toks, launches, dev, "bf16")
-    log(f"    bf16 at 28 layers is not held to the 2-layer reference's "
-        f"7e-2: two attention implementations inside one forward differ "
-        f"by {d['naive']} there (rounding order alone), the decode replay "
-        f"by {d['decode']}")
+    d = consistency(cfg, params, toks, launches, dev, "bf16", phase)
+    log(f"    bf16 at {cfg.n_layers} layers is not held to the 2-layer "
+        f"reference's 7e-2: the kernels and the plain versions inside one "
+        f"forward differ by {d['naive']} there (rounding order alone), the "
+        f"decode replay by {d['decode']}")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = tree_to(params, torch.float32)
-    d = consistency(cfg32, params32, toks, launches, dev, "fp32")
-    if d["decode"] > 1e-3 or d["naive"] > 1e-3:
-        raise AssertionError(f"phase 8: fp32 prefill and decode logits "
-                             f"disagree ({d})")
+    d = consistency(cfg32, params32, toks, launches, dev, "fp32", phase)
+    if d["decode"] > fp32_limit or d["naive"] > fp32_limit:
+        raise AssertionError(f"phase {phase}: fp32 prefill and decode "
+                             f"logits disagree ({d}; limit {fp32_limit})")
     del params32
     torch.cuda.empty_cache()
 
@@ -977,10 +1254,10 @@ def phase_serving(dev, launches):
     prompt = tokens(4, 16)
     out, gsecs, counts = counted(lambda: generate(cfg, run, params, prompt,
                                                   32))
-    expect(counts, "phase 8 generate")
+    expect(counts, f"phase {phase} generate")
     if tuple(out.shape) != (4, 32) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
-        raise AssertionError("phase 8: bad generated tokens")
+        raise AssertionError(f"phase {phase}: bad generated tokens")
     log(f"  generate B=4, 16 + 32 tokens: {gsecs:.3f} s for 48 decode "
         f"steps, {4 * 48 / gsecs:.1f} tokens/s decoded ({4 * 32 / gsecs:.1f}"
         f" new tokens/s); first row {out[0, :8].tolist()}")
@@ -993,10 +1270,10 @@ def phase_serving(dev, launches):
                 for i in range(6)]
         return rids, eng.run_until_done()
     (rids, done), csecs, counts = counted(serve_batch)
-    expect(counts, "phase 8 continuous batching")
+    expect(counts, f"phase {phase} continuous batching")
     if set(done) != set(rids) or any(
             not done[r].done or len(done[r].generated) != 8 for r in rids):
-        raise AssertionError("phase 8: a request did not complete")
+        raise AssertionError(f"phase {phase}: a request did not complete")
     log(f"  ContinuousBatchingEngine: 6 requests in 4 slots, 8 new tokens "
         f"each, all complete in {csecs:.3f} s ({48 / csecs:.1f} new "
         f"tokens/s incl. the batch-1 prefills)")
@@ -1046,12 +1323,17 @@ def main() -> int:
             log(f"    {ln}")
 
     log("phase 3: kernel vs plain version on the card (tolerance 0; "
-        "flash_attention: 2e-5 fp32, one ulp + 2e-5 bf16)")
+        "flash_attention: 2e-5 fp32, one ulp + 2e-5 bf16; ssm_scan, wkv6: "
+        "(1e-5 + 2^-20 * largest chunk decay) * max |plain|)")
+    t3 = time.perf_counter()
     worst = phase_kernels_vs_plain(dev)
     worst["flash_attention"] = phase_flash_vs_plain(dev)
+    worst.update(phase_scans_vs_plain(dev))
+    log(f"  phase 3 in {time.perf_counter() - t3:.1f} s")
 
     launches = {"ring_apply": 0, "ring_apply_whatif": 0, "ps_apply": 0,
-                "flash_attention": 0}
+                "flash_attention": 0, "ssm_scan": 0, "wkv6": 0}
+    t4 = time.perf_counter()
     log("phase 4: paper shape — mlp_teacher D=2762, 1-softsync λ=30, μ=4, "
         "momentum, 300 updates")
     paper = phase_paper_shape(dev, launches)
@@ -1068,7 +1350,10 @@ def main() -> int:
         "1-softsync λ=128, sgd, 8 updates, bf16 ring")
     whatif_K = phase_whatif_lane(dev, launches)
 
-    log("phase 7: per-launch times at the phase 5 / 5b / 6 shapes")
+    log(f"  phases 4-6 in {time.perf_counter() - t4:.1f} s")
+    log("phase 7: per-launch times at the phase 5 / 5b / 6 shapes and at "
+        "one layer of each served model's prefill")
+    t7 = time.perf_counter()
     t_apply = time_kernel("ring_apply", WIDE_D, 128, wide_K["fp32"],
                           "sgd", "fp32", "combine", False, dev, 20, 5)
     time_kernel("ring_apply", WIDE_D, 128, wide_K["bf16"], "sgd",
@@ -1082,9 +1367,16 @@ def main() -> int:
     if t_flash["ms"] > 2000:
         log("  over 2 s per launch at S = 32768: timed at S = 8192 instead")
         t_flash = time_flash(dev, 8192)
+    time_flash(dev, 8192, H=32, KV=32, D=112)    # zamba2_7b's attention
+    t_ssm, t_wkv = time_scans(dev)
+    log(f"  phase 7 in {time.perf_counter() - t7:.1f} s")
 
-    log("phase 8: serving — qwen2_1_5b, 28 layers, bf16, attn_impl='pallas'")
-    phase_serving(dev, launches)
+    for phase, arch, fp32_limit in SERVING:
+        log(f"phase {phase}: serving — {arch}, full width and depth, bf16, "
+            f"attn_impl='pallas', use_pallas=True")
+        tp = time.perf_counter()
+        phase_serving(phase, arch, fp32_limit, dev, launches)
+        log(f"  phase {phase} in {time.perf_counter() - tp:.1f} s")
 
     kernels = []
     ring_src = "src/repro_torch/kernels/csrc/replay_ring.cu"
@@ -1097,7 +1389,11 @@ def main() -> int:
              "src/repro/kernels/ps_update.py:116,128"),
             ("flash_attention", t_flash,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:123")):
+             "src/repro/kernels/flash_attention.py:123"),
+            ("ssm_scan", t_ssm, "src/repro_torch/kernels/csrc/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan.py:85"),
+            ("wkv6", t_wkv, "src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6.py:106")):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -14,11 +14,14 @@ from typing import Dict, List
 
 from repro_torch.config import ModelConfig
 
-# Only the architectures the port uses so far; the rest of the reference's
+# Only the architectures the port serves so far; the rest of the reference's
 # registry (repro/configs) ports with the model stack (ROADMAP.md queue 1
-# item 10).  qwen2_1_5b sizes the what-if problem (QuadraticProblem(arch=)).
+# item 10).  qwen2_1_5b also sizes the what-if problem
+# (QuadraticProblem(arch=)).
 ARCH_IDS: List[str] = [
     "qwen2_1_5b",
+    "zamba2_7b",
+    "rwkv6_7b",
 ]
 
 # CLI aliases with dashes/dots

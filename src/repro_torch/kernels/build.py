@@ -11,13 +11,14 @@ builds (or :func:`build_all` does, all sources at once, one ``nvcc`` each).
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so no multiply-add
 is contracted into an FMA — the update kernels must round exactly like the
 plain PyTorch versions they are held against.  No fast-math.
-``flash_attention.cu`` is held against its plain version within a stated
-tolerance, not bitwise, and builds without ``-fmad=false``
-(``SOURCE_FLAGS``); the hash covers each source's own flags.
+``flash_attention.cu``, ``ssm_scan.cu`` and ``wkv6.cu`` are held against
+their plain versions within stated tolerances, not bitwise, and build
+without ``-fmad=false`` (``SOURCE_FLAGS``); the hash covers each source's
+own flags.
 
-The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``)
-share the binding helpers below: operand checks, the 16-byte vector-path
-test and the launch error check.
+The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``,
+``ssm_scan.py``, ``wkv6.py``) share the binding helpers below: operand
+checks, the 16-byte vector-path test and the launch error check.
 """
 
 from __future__ import annotations
@@ -36,15 +37,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("replay_ring", "ps_update", "flash_attention")
+SOURCES = ("replay_ring", "ps_update", "flash_attention", "ssm_scan", "wkv6")
 # the kernels' optimizer codes (update_event.cuh: OPT_SGD, OPT_MOMENTUM, ...)
 OPT_CODES = {"sgd": 0, "momentum": 1, "adagrad": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 # sources that need no bitwise match with their plain version: FMAs allowed
-SOURCE_FLAGS = {"flash_attention": tuple(f for f in NVCC_FLAGS
-                                         if f != "-fmad=false")}
+_FMA_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+SOURCE_FLAGS = {"flash_attention": _FMA_FLAGS, "ssm_scan": _FMA_FLAGS,
+                "wkv6": _FMA_FLAGS}
 
 
 def flags(name: str) -> Tuple[str, ...]:

@@ -248,6 +248,7 @@ int launch_dim(int D, const void* q, const void* k, const void* v, void* o,
     case 16: return launch<T, 16>(q, k, v, o, st, B, KV, G, Sq, Sk, blk_q, scale, causal, window, stream);
     case 32: return launch<T, 32>(q, k, v, o, st, B, KV, G, Sq, Sk, blk_q, scale, causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, st, B, KV, G, Sq, Sk, blk_q, scale, causal, window, stream);
+    case 112: return launch<T, 112>(q, k, v, o, st, B, KV, G, Sq, Sk, blk_q, scale, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, st, B, KV, G, Sq, Sk, blk_q, scale, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -47,7 +47,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 ROWS = 64            # csrc/flash_attention.cu: query rows per block
 BLK_K = 64           # csrc/flash_attention.cu: keys per K/V tile
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset_launches()

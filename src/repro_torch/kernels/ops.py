@@ -1,7 +1,6 @@
 """Public wrappers of the port's kernels (counterpart of
-``repro/kernels/ops.py``; the parameter-server update and flash attention
-are ported — the SSM and WKV kernels wait for the zamba2 and rwkv6 slices,
-ROADMAP.md queue 2 items 5–6).
+``repro/kernels/ops.py``: the parameter-server update, flash attention, the
+Mamba2 SSD scan and the RWKV6 WKV recurrence).
 
 The reference jit-compiles each wrapper and derives Pallas' interpret mode
 from the backend.  Here the device of the operands decides: a CUDA tensor
@@ -12,6 +11,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ps_update as _ps
+from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.kernels import wkv6 as _wkv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -33,3 +34,17 @@ def ps_apply(w_flat, s_flat, g_flat, coef, lrs, *, spec,
     ``repro_torch.optim``)."""
     return _ps.ps_apply(w_flat, s_flat, g_flat, coef, lrs, spec=spec,
                         mode=mode)
+
+
+def ssm_scan(x, a, Bm, Cm, *, chunk: int = _ssm.DEFAULT_CHUNK):
+    """Mamba2 SSD chunked scan from a zero state (see
+    ``ssm_scan.ssm_scan``)."""
+    return _ssm.ssm_scan(x, a, Bm, Cm, chunk=chunk)
+
+
+def wkv6(r, k, v, w, u, *, chunk: int = _wkv.DEFAULT_CHUNK,
+         init_state=None):
+    """RWKV6 WKV recurrence from a zero state (see ``wkv6.wkv6``, which
+    refuses an ``init_state`` other than None: the reference's wrapper
+    drops it silently)."""
+    return _wkv.wkv6(r, k, v, w, u, chunk=chunk, init_state=init_state)

@@ -1,5 +1,7 @@
-"""The model stack of the port (counterpart of ``repro/models``): the dense
-attention family's serving path — init, prefill forward, caches and decode.
+"""The model stack of the port (counterpart of ``repro/models``): the
+serving path — init, prefill forward, caches and decode — of the dense
+attention family, the hybrid of mamba and shared attention (zamba2) and the
+attention-free rwkv6.
 Parameters are the reference's nested dict of tensors (see
 ``models/transformer.py``)."""
 

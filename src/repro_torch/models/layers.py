@@ -1,11 +1,11 @@
-"""Primitive layers of the dense attention family (counterpart of
-``repro/models/layers.py``).
+"""Primitive layers (counterpart of ``repro/models/layers.py``).
 
 All layers are plain functions over explicit parameter trees (nested dicts
 of tensors, the reference's pytree layout).  Norm and activation arithmetic
 runs in fp32 whatever the compute dtype, and results are cast back where the
 reference casts: ``swiglu`` takes silu in fp32, rounds it to the parameter
-dtype and multiplies by ``u`` there; ``lm_head`` multiplies in the
+dtype and multiplies by ``u`` there; ``sqrelu_ffn`` squares the relu in
+fp32 and rounds it to the input dtype; ``lm_head`` multiplies in the
 parameter dtype and then casts to fp32.
 
 The ``init_*`` functions draw from an explicit ``torch.Generator`` (the
@@ -14,9 +14,8 @@ reference's weights across instead, ``experiments/carry.py``).  ``lead``
 prefixes every leaf's shape, so the stacked per-unit parameters of a model
 are drawn in one call.
 
-Not ported here: ``layer_norm`` and ``sqrelu_ffn`` (the rwkv slice,
-ROADMAP.md queue 2 item 6), the losses and ``accuracy`` (training, queue 1
-item 9).
+Not ported here: ``layer_norm`` (no model calls it), the losses and
+``accuracy`` (training, ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -105,6 +104,23 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, device,
         "w_gate": normal(gen, lead + (d_model, d_ff), dtype, device, s_in),
         "w_up": normal(gen, lead + (d_model, d_ff), dtype, device, s_in),
         "w_down": normal(gen, lead + (d_ff, d_model), dtype, device, s_out),
+    }
+
+
+def sqrelu_ffn(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """RWKV channel-mix FFN: squared relu.  p: {w_k (M,F), w_v (F,M)}."""
+    k = torch.matmul(x, p["w_k"])
+    k = torch.square(torch.relu(k.to(torch.float32))).to(x.dtype)
+    return torch.matmul(k, p["w_v"])
+
+
+def init_sqrelu_ffn(gen, d_model: int, d_ff: int, dtype, device,
+                    lead: Lead = ()) -> dict:
+    return {
+        "w_k": normal(gen, lead + (d_model, d_ff), dtype, device,
+                      float(1.0 / np.sqrt(d_model))),
+        "w_v": normal(gen, lead + (d_ff, d_model), dtype, device,
+                      float(1.0 / np.sqrt(d_ff))),
     }
 
 

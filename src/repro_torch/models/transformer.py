@@ -3,20 +3,23 @@ model of ``n_units`` repeats of ``cfg.block_pattern``.
 
 Parameters are the reference's nested dict of tensors, leaf for leaf:
 ``embed``, ``units`` (each leaf stacked on a leading ``n_units`` axis),
-``final_norm`` and ``head``.  So ``experiments/carry.py`` maps the
+``final_norm``, ``head`` and, for a model with ``shared_attn`` blocks
+(zamba2), ``shared`` — the weight-shared attention and MLP, with no unit
+axis, read by every unit.  So ``experiments/carry.py`` maps the
 reference's pytree onto them path by path.  The reference's
 ``lax.scan`` over units is a loop over units here, each unit's parameters
 and caches a view (``[u]``) into the stacked leaves.
 
-Caches are real ``(n_units, B, C, KV, Dh)`` tensors — never a broadcast
-view, whose units would share one storage — and ``model_decode_step``
-writes them in place and returns the same dict.
+Caches are real tensors with a leading ``n_units`` axis (attention K/V,
+the mamba state and convolution history, the rwkv state and token shifts)
+— never a broadcast view, whose units would share one storage — and
+``model_decode_step`` writes them in place and returns the same dict.
 
 ``RunConfig.remat`` and ``residual_spec`` steer training and sharding in the
 reference; the port's single-card inference path does not read them.
 Not ported yet: ``model_loss`` (training, ROADMAP.md queue 1 item 9), the
-audio and vision frontends and every block type but ``attn`` (queue 1 item
-10; see ``models/blocks.py``).
+audio and vision frontends and the moe blocks (queue 1 item 10; see
+``models/blocks.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import config as C
 from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import blocks as B
@@ -45,9 +47,6 @@ def _check_model(cfg: ModelConfig) -> None:
     if cfg.frontend != "none":
         raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported "
                                   f"yet (ROADMAP.md queue 1 item 10)")
-    if C.BLOCK_SHARED_ATTN in cfg.block_pattern:
-        raise NotImplementedError("shared_attn is not ported yet (ROADMAP.md "
-                                  "queue 1 item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +71,9 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
     if not cfg.tie_embeddings:
         params["head"] = init_lm_head(gen, cfg.d_model, cfg.padded_vocab,
                                       dtype, device)
+    shared = B.init_shared_block(gen, cfg, dtype, device)
+    if shared is not None:
+        params["shared"] = shared
     return params
 
 

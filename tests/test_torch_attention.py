@@ -285,7 +285,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
-@pytest.mark.parametrize("H,KV,D", [(12, 2, 128), (8, 2, 32), (4, 4, 16)])
+@pytest.mark.parametrize("H,KV,D", [(12, 2, 128), (8, 2, 32), (4, 4, 16),
+                                    (32, 32, 112)])
 def test_flash_kernel_matches_plain_on_card(H, KV, D, causal, window, dtype,
                                             cuda):
     """Tolerance: 2e-5 absolute in fp32 (exp and the summation order

@@ -53,10 +53,12 @@ def test_port_file_list_is_complete():
                      "models/__init__.py", "models/layers.py",
                      "models/attention.py", "models/blocks.py",
                      "models/transformer.py", "serve/engine.py",
-                     "serve/scheduler.py"):
+                     "serve/scheduler.py", "models/ssm.py", "models/rwkv.py",
+                     "kernels/ssm_scan.py", "kernels/wkv6.py",
+                     "configs/zamba2_7b.py", "configs/rwkv6_7b.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
-                   "flash_attention.cu"):
+                   "flash_attention.cu", "ssm_scan.cu", "wkv6.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file()
 
 
@@ -163,10 +165,13 @@ def test_serving_entry_points_raise_without_card(no_card):
     from repro_torch.models import init_caches, init_model
     from repro_torch.serve.engine import generate, init_serve_state
     cfg = dataclasses.replace(get_smoke("qwen2_1_5b"), dtype="float32")
+    others = [get_smoke(a) for a in ("zamba2_7b", "rwkv6_7b")]
     for call in (lambda: init_model(cfg),
                  lambda: init_model(cfg, 0),
                  lambda: init_caches(cfg, 1, 4),
-                 lambda: init_serve_state(cfg, 1, 4)):
+                 lambda: init_serve_state(cfg, 1, 4),
+                 *(lambda c=c: init_model(c, 0) for c in others),
+                 *(lambda c=c: init_caches(c, 1, 4) for c in others)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     # generate runs where the parameters are: here, where it was asked

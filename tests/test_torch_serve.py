@@ -1,12 +1,19 @@
 """The port's serving path (``repro_torch.models``, ``serve/engine.py``,
-``serve/scheduler.py``) against the reference on the qwen2 ``SMOKE``
-config, with the reference's weights carried across
+``serve/scheduler.py``) against the reference on the ``SMOKE`` configs of
+qwen2 (dense attention), zamba2 (mamba + shared attention) and rwkv6
+(attention-free), with the reference's weights carried across
 (``experiments/carry.model_params_from_jax``) and numpy-seeded tokens.
 
 Tolerances: fp32 logits within 5e-5 (matmul and exp summation orders
 differ); bf16 logits within the reference's own 7e-2
 (``tests/test_serving.py::test_decode_matches_forward``: bf16 rounding at
-other places in the two frameworks).  Greedy tokens and continuous-batching
+other places in the two frameworks), set on two layers.  zamba2's SMOKE
+model has six: there bf16 logits are held within 0.15 (the reference's own
+chunked and naive attention differ by 7.8e-2 on it), and fp32 logits with
+the chunked attention within 1e-3 (its P·V product rounds probabilities to
+bf16 in both packages — the reference's chunked and naive attention differ
+by 2e-2 on it — so a probability that rounds to another bf16 value in one
+framework than in the other moves the logits by ~1e-4 to 1e-3).  Greedy tokens and continuous-batching
 completions are compared in fp32, where they are equal: in bf16 a logit
 rounding can flip an argmax between two near-equal candidates.
 """
@@ -41,21 +48,35 @@ from repro_torch.serve.scheduler import ContinuousBatchingEngine
 
 ATOL = {"float32": 5e-5, "bfloat16": 7e-2}
 B, S = 2, 10
+ARCHS = ["qwen2_1_5b", "zamba2_7b", "rwkv6_7b"]
 
 
-def _cfgs(dtype):
-    return (dataclasses.replace(jget_smoke("qwen2_1_5b"), dtype=dtype),
-            dataclasses.replace(get_smoke("qwen2_1_5b"), dtype=dtype))
+def _cfgs(dtype, arch="qwen2_1_5b"):
+    return (dataclasses.replace(jget_smoke(arch), dtype=dtype),
+            dataclasses.replace(get_smoke(arch), dtype=dtype))
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+@pytest.fixture(scope="module", params=[
+    pytest.param((arch, dtype),
+                 id=dtype if arch == "qwen2_1_5b" else f"{arch}-{dtype}")
+    for arch in ARCHS for dtype in ("float32", "bfloat16")])
 def model(request):
     """(dtype, reference cfg, reference params, port cfg, port params)."""
-    dtype = request.param
-    jcfg, cfg = _cfgs(dtype)
+    arch, dtype = request.param
+    jcfg, cfg = _cfgs(dtype, arch)
     jp = jinit_model(jcfg, jax.random.PRNGKey(0))
     np_tree = jax.tree.map(lambda a: np.array(a, copy=True), jp)
     return dtype, jcfg, jp, cfg, model_params_from_jax(np_tree, cfg, "cpu")
+
+
+def _run_kw(cfg, impl):
+    """The RunConfig of one forward implementation: the attention impl; the
+    kernels (flash, ssm_scan, wkv6 — Pallas in interpret mode in the
+    reference) with "pallas"; and for rwkv6, whose forward has no
+    attention, the unrolled chunked WKV with "chunked"."""
+    return dict(attn_impl=impl, attn_q_chunk=4, attn_kv_chunk=4,
+                use_pallas=impl == "pallas",
+                unroll=impl == "chunked" and cfg.attention_free)
 
 
 def _tokens(seed, shape, vocab):
@@ -63,19 +84,27 @@ def _tokens(seed, shape, vocab):
         np.int32)
 
 
-def _close(got, want, dtype):
+def _atol(cfg, dtype, impl="naive"):
+    """The module note's tolerances: ATOL on two layers, wider on six."""
+    if cfg.n_layers <= 2:
+        return ATOL[dtype]
+    if dtype == "bfloat16":
+        return 0.15
+    return 1e-3 if impl == "chunked" else ATOL[dtype]
+
+
+def _close(got, want, atol):
     np.testing.assert_allclose(np.asarray(got, np.float32),
-                               np.asarray(want, np.float32),
-                               atol=ATOL[dtype])
+                               np.asarray(want, np.float32), atol=atol)
 
 
 @pytest.mark.parametrize("impl", ["naive", "chunked", "pallas"])
 def test_model_forward_matches_reference(model, impl):
-    """Each attn_impl of the port against the same attn_impl of the
-    reference (its Pallas kernel in interpret mode on the CPU)."""
+    """Each implementation of the port against the same one of the
+    reference (its Pallas kernels in interpret mode on the CPU)."""
     dtype, jcfg, jp, cfg, p = model
     toks = _tokens(1, (B, S), cfg.vocab_size)
-    kw = dict(attn_impl=impl, attn_q_chunk=4, attn_kv_chunk=4)
+    kw = _run_kw(cfg, impl)
     want, _ = jax.jit(lambda p_, t: jforward(
         jcfg, JRunConfig(**kw), p_, {"tokens": t}))(
             jp, jnp.asarray(toks.copy()))
@@ -83,7 +112,7 @@ def test_model_forward_matches_reference(model, impl):
     got, aux = model_forward(cfg, run, p, {"tokens": torch.tensor(toks)})
     assert got.shape == (B, S, cfg.padded_vocab) and got.dtype == torch.float32
     assert float(aux["lb_loss"]) == 0.0
-    _close(got, want, dtype)
+    _close(got, want, _atol(cfg, dtype, impl))
     assert count_params(p) == sum(int(np.prod(a.shape))
                                   for a in jax.tree.leaves(jp))
 
@@ -102,7 +131,7 @@ def test_decode_step_and_prefill_match_reference(model):
     got, out = model_decode_step(cfg, run, p, torch.tensor(toks[:, :1]), 0,
                                  caches)
     assert out is caches
-    _close(got, want, dtype)
+    _close(got, want, _atol(cfg, dtype))
 
     jstate = jinit_serve_state(jcfg, B, S + 2)
     jlog, jstate = jprefill(jcfg, jrun, jp, {"tokens": jnp.asarray(
@@ -111,15 +140,17 @@ def test_decode_step_and_prefill_match_reference(model):
     logits, new = prefill(cfg, run, p, {"tokens": torch.tensor(toks)}, state)
     assert new.caches is state.caches            # written in place
     assert int(new.position) == S == int(jstate.position)
-    _close(logits, jlog, dtype)
-    full = prefill_step(cfg, RunConfig(attn_impl="pallas"), p,
-                        {"tokens": torch.tensor(toks)})
-    np.testing.assert_allclose(logits.numpy(), full.numpy(), atol=7e-2)
+    _close(logits, jlog, _atol(cfg, dtype))
+    full = prefill_step(cfg, RunConfig(attn_impl="pallas", use_pallas=True),
+                        p, {"tokens": torch.tensor(toks)})
+    np.testing.assert_allclose(logits.numpy(), full.numpy(),
+                               atol=max(7e-2, _atol(cfg, dtype)))
 
 
-def test_generate_matches_reference():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_reference(arch):
     """Greedy tokens equal the reference's (fp32, see the module note)."""
-    jcfg, cfg = _cfgs("float32")
+    jcfg, cfg = _cfgs("float32", arch)
     jp = jinit_model(jcfg, jax.random.PRNGKey(3))
     p = model_params_from_jax(jax.tree.map(np.array, jp), cfg, "cpu")
     prompt = _tokens(4, (B, 5), cfg.vocab_size)
@@ -130,10 +161,11 @@ def test_generate_matches_reference():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_continuous_batching_matches_reference():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_continuous_batching_matches_reference(arch):
     """Three requests through two slots (staggered admission, slot reuse):
     completions equal the reference engine's on the same requests (fp32)."""
-    jcfg, cfg = _cfgs("float32")
+    jcfg, cfg = _cfgs("float32", arch)
     jp = jinit_model(jcfg, jax.random.PRNGKey(5))
     p = model_params_from_jax(jax.tree.map(np.array, jp), cfg, "cpu")
     prompts = [[3, 14, 15, 9], [26, 5], [35, 8, 9, 7, 9]]
@@ -185,11 +217,43 @@ def test_carry_checks_every_leaf():
         model_params_from_jax(wrong, cfg, "cpu")
 
 
-@pytest.mark.parametrize("block", ["moe", "moe_dense", "shared_attn",
-                                   "mamba", "rwkv"])
+@pytest.mark.parametrize("arch", ["zamba2_7b", "rwkv6_7b"])
+def test_carry_maps_mamba_rwkv_and_shared_leaves(arch):
+    """Every leaf of the reference's tree lands bit for bit at its path: the
+    mamba and rwkv leaves (the fp32 ones in a bf16 model), and zamba2's
+    shared trunk with no unit axis beside per-unit norms."""
+    jcfg, cfg = _cfgs("bfloat16", arch)
+    tree = jax.tree.map(np.array, jinit_model(jcfg, jax.random.PRNGKey(1)))
+    p = model_params_from_jax(tree, cfg, "cpu")
+    for path, want in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        got = p
+        for key in path:
+            got = got[key.key]
+        assert tuple(got.shape) == want.shape
+        if want.dtype == np.float32:
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                          want.view(np.int16))
+    if arch == "zamba2_7b":
+        unit = p["units"]["block_1"]
+        assert set(p["shared"]) == {"attn", "mlp"}
+        assert p["shared"]["attn"]["w_q"].shape[0] == cfg.d_model
+        assert set(p["units"]["block_0"]) == {"norm1", "norm2"}
+        assert unit["mamba"]["dt_bias"].dtype == torch.float32
+        assert unit["mamba"]["dt_bias"].shape == (cfg.n_units,
+                                                  cfg.ssm_n_heads)
+    else:
+        assert "shared" not in p
+        rw = p["units"]["block_0"]["rwkv"]
+        assert rw["bonus_u"].dtype == rw["decay_w0"].dtype == torch.float32
+    assert count_params(p) == sum(int(np.prod(a.shape))
+                                  for a in jax.tree.leaves(tree))
+
+
+@pytest.mark.parametrize("block", ["moe", "moe_dense"])
 def test_other_blocks_name_their_roadmap_item(block):
-    item = {"mamba": "queue 2 item 5", "rwkv": "queue 2 item 6"}.get(
-        block, "queue 1 item 10")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         blocks.init_block(block, None, get_smoke("qwen2_1_5b"),
                           torch.float32, "meta")
