@@ -11,7 +11,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    serving phases' prefill-vs-decode comparisons rely on.
 2. Build: every CUDA source under ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, all started together); each build's
-   seconds.
+   seconds and ptxas lines with spills; for ``flash_attention_sm90`` the
+   counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+   its SASS (``cuobjdump -sass``), each required to be nonzero, and ptxas's
+   wgmma warnings.
 3. Kernel vs plain version on the card: ``ring_apply`` over optimizer ×
    mode × ring dtype and ``ring_apply_whatif`` over optimizer × ring dtype,
    at D = 2²² + 37 (a ragged edge), c = 32, K ∈ {3, 1} (K = 1: hardsync,
@@ -19,12 +22,15 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    at the same D and c (its inputs must come back unchanged: it writes
    out of place).  Tolerance: 0 — bitwise.  Then ``flash_attention`` at
    qwen2_1_5b's GQA (H = 12 over KV = 2, D = 128) and a ragged S = 1 000:
-   causal, causal with a window of 48, and non-causal, fp32 and bf16, and
-   once through the (B, KV, G, S, D) entry with Sq ≠ Sk.  Tolerance: 2e-5
-   absolute in fp32 (exp and the summation order differ, FMAs allowed) and
-   in bf16 one ulp of the output plus the same 2e-5 (fp32 values that
-   differ by that, rounded once each); and at zamba2_7b's attention
-   (H = KV = 32, D = 112), causal.  Then ``ssm_scan`` at zamba2_7b's mamba
+   causal, causal with a window of 48, and non-causal, fp32 (the CUDA-core
+   kernel) and bf16 (the sm90 kernel), once through the (B, KV, G, S, D)
+   entry with Sq ≠ Sk, at D 64, at Sq 201 against Sk 777, and at
+   zamba2_7b's attention (H = KV = 32, D = 112), causal.  Tolerance: 2e-5
+   absolute in fp32 (exp and the summation order differ, FMAs allowed); in
+   bf16 2⁻⁸ · max|v| over the (b, kv head)'s keys + one bf16 ulp of the
+   larger output + 2e-5 (the sm90 kernel rounds P to bf16 before P·V:
+   ``flash_attention.sm90_error_share``, printed as the share of that
+   bound used).  Then ``ssm_scan`` at zamba2_7b's mamba
    head (H 112, P 64, N 64, chunk 256; dt in [1e-3, 0.1], A = −(1…112))
    with B / C as column slices of one tensor in bf16 and in fp32, and
    ``wkv6`` at rwkv6_7b's head (H 64, P 64, chunk 32) with r / k / v in
@@ -62,10 +68,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 7. Per-launch times of each kernel at the phase 5 / 6 shapes beside its
    bound, its plain version's time and one PyTorch call computing the same
    event (``torch.addmv``, where one exists); ``flash_attention`` at one
-   layer of the prefill_32k shape (B 1, KV 2, G 6, S 32 768, D 128, causal,
-   bf16) beside its plain version, ``scaled_dot_product_attention`` (the
-   yardstick; the port never calls it) and its bound; the same at one
-   layer of zamba2_7b's prefill (B 1, H = KV = 32, S 8 192, D 112); and
+   layer of the prefill_32k shape (B 1, KV 2, G 6, S 32 768, D 128, causal)
+   and at one layer of zamba2_7b's prefill (B 1, H = KV = 32, S 8 192,
+   D 112): the sm90 kernel in bf16 and the CUDA-core kernel in fp32, each
+   beside its plain version, ``scaled_dot_product_attention`` in bf16 (the
+   yardstick; the port never calls it) and its bound (``attention_cost``:
+   the mask's live pairs at 989 TFLOP/s bf16, or 67 TFLOP/s fp32), with
+   the share of the bound reached; and
    ``ssm_scan`` and ``wkv6`` at one layer of their model's prefill (B 1,
    S 8 192, bf16 operands) beside their plain versions and bounds (no
    PyTorch call computes either: no library time).
@@ -73,9 +82,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    from a seeded ``torch.Generator`` on the card) through
    ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
    ``prefill_step`` of one 8 192-token prompt (exactly 28 flash launches,
-   finite logits, tokens per second); at a 64-token prompt and B = 2,
-   ``prefill_step``'s logits against the decode-replay ``prefill``'s and
-   against ``attn_impl="naive", use_pallas=False`` (the plain versions) —
+   all 28 through the sm90 kernel; finite logits, tokens per second); at
+   a 64-token prompt and B = 2, ``prefill_step``'s logits against the
+   decode-replay ``prefill``'s and against ``attn_impl="naive",
+   use_pallas=False`` (the plain versions) —
    printed in bf16, and held within 1e-3 on the same weights in fp32 (fp32
    rounding orders; bf16 at 28 layers differs by more than the 2-layer
    reference test's 7e-2 between any two of the three, so it is reported,
@@ -84,7 +94,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    in 4 slots, each with its 8 tokens; peak device memory.
 9. The same for zamba2_7b (81 layers: 27 units of shared attention and two
    mamba blocks, 4 645 909 472 parameters): exactly 54 ``ssm_scan`` and 27
-   ``flash_attention`` launches per prefill forward; fp32 held within
+   ``flash_attention`` launches per prefill forward (in bf16 all 27 through
+   the sm90 kernel, in fp32 through the CUDA-core one); fp32 held within
    1e-2 (``SERVING``: 81 layers of random weights amplify rounding).
 10. The same for rwkv6_7b (32 rwkv layers, 6 997 544 960 parameters):
    exactly 32 ``wkv6`` launches per prefill forward; fp32 held within
@@ -95,7 +106,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 Launch counts are zeroed just before each main-path phase (4, 4b, 5, 5b,
 6, and each run of phases 8–10) and read just after it; they must equal the
 update counts (phases 8–10: one kernel launch per attention, mamba or rwkv
-layer of a prefill forward, none in decode).
+layer of a prefill forward, none in decode); flash launches are also
+counted per kernel (``flash_sm90``, ``flash_simt``).
 """
 
 import dataclasses
@@ -115,6 +127,7 @@ PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_OPS_PER_S = 67e12 / 2
 # flash_attention builds with FMAs: the data sheet's fp32 rate as it is
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12          # dense bf16 on the tensor cores
 OPT_OPS = {"sgd": 2, "momentum": 4, "adagrad": 7}   # fp32 ops per element
 CHECK_D = (1 << 22) + 37          # phase 3: a ragged width (no vector path)
 WIDE_HIDDEN = 232558              # phases 5 / 5b: mlp_teacher's width …
@@ -330,6 +343,29 @@ def bound_ms(nbytes, nops):
                                  else "operations")
 
 
+def sass_counts(lib, nvcc):
+    """Phase 2 for the sm90 flash kernel: its wgmma (``HGMMA``) and TMA
+    load (``UTMALDG``) instructions in the built library's SASS, each
+    required to be nonzero, and ptxas's wgmma warnings (serialised
+    wgmma)."""
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    warns = [ln.strip() for ln in
+             lib.with_suffix(".log").read_text().splitlines()
+             if "wgmma" in ln.lower()]
+    log(f"  flash_attention_sm90 SASS: {counts['HGMMA']} HGMMA, "
+        f"{counts['UTMALDG']} UTMALDG instructions; ptxas wgmma warnings: "
+        f"{len(warns)}")
+    for ln in warns[:4]:
+        log(f"    {ln}")
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention_sm90: no wgmma or no TMA load "
+                             f"in its SASS ({counts})")
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -384,7 +420,10 @@ def counted(fn):
     res = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return res, secs, {k: v for m in mods for k, v in m.launches.items()}
+    counts = {k: v for m in mods for k, v in m.launches.items()}
+    counts.update({f"flash_{path}": n for path, n in
+                   flash_attention.launches_by_path.items()})
+    return res, secs, counts
 
 
 def drive(spec, dev):
@@ -395,7 +434,8 @@ def drive(spec, dev):
 
 def expect(counts, what, **want):
     full = {"ring_apply": 0, "ring_apply_whatif": 0, "ps_apply": 0,
-            "flash_attention": 0, "ssm_scan": 0, "wkv6": 0, **want}
+            "flash_attention": 0, "flash_sm90": 0, "flash_simt": 0,
+            "ssm_scan": 0, "wkv6": 0, **want}
     if counts != full:
         raise AssertionError(f"{what} launches {counts}, expected {full}")
 
@@ -726,20 +766,10 @@ FLASH_CELLS = (   # (B, Sq, Sk, H, KV, D, causal, window, bkgsd entry)
     (2, 1000, 1000, 12, 2, 128, True, 48, False),
     (2, 1000, 1000, 12, 2, 128, False, 0, False),
     (1, 1000, 777, 12, 2, 128, False, 0, True),
+    (2, 1000, 1000, 8, 2, 64, True, 0, False),
+    (2, 201, 777, 12, 2, 128, False, 0, False),
     (2, 1000, 1000, 32, 32, 112, True, 0, False),     # zamba2's attention
 )
-
-
-def bf16_ulp_ratio(x, y, fp32_tol: float = 2e-5) -> float:
-    """max |x − y| / (one bf16 ulp of the larger of |x|, |y| + fp32_tol)
-    over the elements of two bf16 tensors: at most 1 when the two agree to
-    one rounding of fp32 values that were themselves within fp32_tol (near
-    zero a bf16 ulp is tiny, and the fp32 difference is what is left)."""
-    import torch
-    a, b = x.float(), y.float()
-    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
-    return float(((a - b).abs() / (ulp + fp32_tol)).max())
 
 
 def flash_inputs(B, Sq, Sk, H, KV, D, dtype, seed, dev):
@@ -752,16 +782,17 @@ def flash_inputs(B, Sq, Sk, H, KV, D, dtype, seed, dev):
 
 
 def flash_pair(q, k, v, causal, window, bkgsd):
-    """(kernel, plain version) on the same inputs.  ``bkgsd``: through the
-    (B, KV, G, S, D) entry on contiguous copies; otherwise through the
-    model's (B, S, H, D) entry, which the kernel reads through strides."""
+    """(kernel, plain version, v) on the same inputs, (B, KV, G, S, D) and
+    (B, KV, Sk, D).  ``bkgsd``: through the (B, KV, G, S, D) entry on
+    contiguous copies; otherwise through the model's (B, S, H, D) entry,
+    which the kernels read through strides."""
     from repro_torch.kernels import flash_attention as fa
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
     qb = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
     kb, vb = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-    bq, bk = fa.kernel_tiles(G, Sq, k.shape[1])
+    bq, bk = fa.kernel_tiles(G, Sq, k.shape[1], q.dtype)
     plain = fa.flash_attention_bkgsd_plain(qb, kb, vb, causal=causal,
                                            window=window, blk_q=bq, blk_k=bk)
     if bkgsd:
@@ -771,113 +802,124 @@ def flash_pair(q, k, v, causal, window, bkgsd):
     else:
         kern = fa.flash_attention(q, k, v, causal=causal, window=window)
         kern = kern.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
-    return kern, plain
+    return kern, plain, vb
 
 
-def flash_check(kern, plain, what) -> float:
+def flash_check(kern, plain, v, what):
     """Raise unless kernel and plain version agree (2e-5 absolute in fp32;
-    in bf16 one ulp of the output plus that, see :func:`bf16_ulp_ratio`);
-    returns max |kernel − plain|."""
+    in bf16 within the sm90 kernel's bound, see
+    ``flash_attention.sm90_error_share``); returns (max |kernel − plain|,
+    the share of the bf16 bound used or None)."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     torch.cuda.synchronize()
     if not bool(torch.isfinite(kern).all()):
         raise AssertionError(f"{what}: non-finite kernel output")
     err = float((kern.float() - plain.float()).abs().max())
+    share = None
     if kern.dtype == torch.bfloat16:
-        ratio = bf16_ulp_ratio(kern, plain)
-        if ratio > 1:
-            raise AssertionError(f"{what}: more than one bf16 ulp apart "
-                                 f"(ratio {ratio}, max |diff| {err})")
+        share = fa.sm90_error_share(kern, plain, v)
+        if share > 1:
+            raise AssertionError(f"{what}: beyond the bf16 bound (share "
+                                 f"{share}, max |diff| {err})")
     elif err > 2e-5:
         raise AssertionError(f"{what}: max |kernel - plain| = {err}")
-    return err
+    return err, share
 
 
 def phase_flash_vs_plain(dev) -> float:
+    """Every cell in fp32 and bf16; returns the worst bf16 (sm90) error."""
     import torch
-    worst = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for B, Sq, Sk, H, KV, D, causal, window, bkgsd in FLASH_CELLS:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(B, Sq, Sk, H, KV, D, dtype, 14, dev)
             what = (f"flash_attention B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
                     f"D={D} causal={causal} window={window} "
                     f"{str(dtype)[6:]}{' bkgsd' if bkgsd else ''}")
-            err = flash_check(*flash_pair(q, k, v, causal, window, bkgsd),
-                              what)
-            worst = max(worst, err)
-            log(f"  {what}: max|kernel-plain| = {err}")
-    return worst
-
-
-def flash_live_tiles(S, G, causal, window):
-    """(live (q tile, K tile) pairs of the kernel's tiling, rows per q
-    tile, keys per K tile) for a self-attention of length S."""
-    from repro_torch.kernels import flash_attention as fa
-    bq, bk = fa.kernel_tiles(G, S, S)
-    live = 0
-    for qi in range(-(-S // bq)):
-        q_lo, q_hi = qi * bq, qi * bq + bq - 1
-        for k0 in range(0, S, fa.BLK_K):
-            if causal and k0 > q_hi:
-                break
-            if window > 0 and k0 + fa.BLK_K - 1 <= q_lo - window:
-                continue
-            live += 1
-    return live, G * bq, fa.BLK_K
+            err, share = flash_check(*flash_pair(q, k, v, causal, window,
+                                                 bkgsd), what)
+            worst[dtype] = max(worst[dtype], err)
+            log(f"  {what}: max|kernel-plain| = {err}"
+                + ("" if share is None else
+                   f" ({share:.4f} of the bf16 bound)"))
+    log(f"  flash worst: fp32 (CUDA-core kernel) {worst[torch.float32]}, "
+        f"bf16 (sm90 kernel) {worst[torch.bfloat16]}")
+    return worst[torch.bfloat16]
 
 
 def time_flash(dev, S, H=12, KV=2, D=128):
-    """One causal bf16 attention layer at B 1: by default qwen2_1_5b's
-    (KV 2, G 6, D 128; the prefill_32k shape at S = 32 768).  Kernel,
-    plain version and ``scaled_dot_product_attention`` (the yardstick) on
-    the same inputs; the bound is the larger of bytes over HBM rate and the
-    live tiles' fp32 operations over the CUDA cores' fp32 rate (the
-    design's: FMAs allowed, no tensor cores)."""
+    """One causal attention layer at B 1: by default qwen2_1_5b's (KV 2,
+    G 6, D 128; the prefill_32k shape at S = 32 768).  The sm90 kernel in
+    bf16 and the CUDA-core kernel in fp32, each beside its plain version on
+    the same inputs, and ``scaled_dot_product_attention`` in bf16 (the
+    yardstick).  Bounds: the larger of bytes over the HBM rate and
+    ``attention_cost``'s flops (the mask's live pairs, 4·D each) over the
+    bf16 tensor-core rate, or over the fp32 rate for the CUDA-core kernel.
+    Returns the sm90 kernel's numbers (the ``kernels`` line's row)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B = 1
-    q, k, v = flash_inputs(B, S, S, H, KV, D, torch.bfloat16, 23, dev)
-    kern, plain = flash_pair(q, k, v, True, 0, False)
-    err = flash_check(kern, plain, f"flash_attention at S={S}")
-    del kern, plain
-    torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 3)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_bkgsd_plain(
-        q.reshape(B, S, KV, H // KV, D).permute(0, 2, 3, 1, 4),
-        k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), causal=True,
-        window=0, blk_q=fa.kernel_tiles(H // KV, S, S)[0],
-        blk_k=fa.BLK_K), 1, warmup=0)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                          enable_gqa=True).transpose(1, 2)
-    lib_diff = float((sdpa.float() - fa.flash_attention(
-        q, k, v, causal=True).float()).abs().max())
-    del sdpa
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 3)
-    live, rows, keys = flash_live_tiles(S, H // KV, True, 0)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
-    nops = B * KV * live * rows * keys * D * 4   # q·k and p·v, 2 FMAs each
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_FP32_FLOPS * 1e3
-    bms, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                    else "operations")
-    pairs = B * H * S * (S + 1) // 2                    # live (row, key) pairs
-    log(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} causal bf16: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms; "
-        f"scaled_dot_product_attention {lib_ms:.4f} ms, max |sdpa - "
-        f"kernel| = {lib_diff}; bound {bms:.4f} ms by {by}: "
-        f"{nbytes / 1e6:.1f} MB, {nops / 1e12:.4f} Tflop over {live} live "
-        f"tiles of {rows} rows x {keys} keys at {PEAK_FP32_FLOPS / 1e12:.0f} "
-        f"TFLOP/s fp32; the mask's own {4 * pairs * D / 1e12:.4f} Tflop; "
-        f"{nops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved, "
-        f"{t_ops / ms:.3f} of the fp32 bound; the same work on bf16 tensor "
-        f"cores would be bound at {nops / 989e12 * 1e3:.4f} ms)")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "max_abs_err": err, "library_ms": lib_ms}
+    B, G = 1, H // KV
+    res = {}
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS),
+                        (torch.float32, PEAK_FP32_FLOPS)):
+        q, k, v = flash_inputs(B, S, S, H, KV, D, dtype, 23, dev)
+        kern, plain, vb = flash_pair(q, k, v, True, 0, False)
+        err, share = flash_check(kern, plain, vb,
+                                 f"flash_attention at S={S} {dtype}")
+        del kern, plain
+        torch.cuda.empty_cache()
+        path = fa.kernel_path(dtype)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 3)
+        bq, bk = fa.kernel_tiles(G, S, S, dtype)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bkgsd_plain(
+            q.reshape(B, S, KV, G, D).permute(0, 2, 3, 1, 4),
+            k.permute(0, 2, 1, 3), vb, causal=True, window=0, blk_q=bq,
+            blk_k=bk), 1, warmup=0)
+        nbytes, flops = fa.attention_cost(B, H, KV, S, S, D, True, 0,
+                                          itemsize=q.element_size())
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        bms, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+        res[path] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "max_abs_err": err,
+                     "flops": flops, "nbytes": nbytes, "share": share}
+        if dtype == torch.bfloat16:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+            res["lib_diff"] = float((sdpa.float() - fa.flash_attention(
+                q, k, v, causal=True).float()).abs().max())
+            del sdpa
+            res["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 3)
+            del qt, kt, vt
+        del q, k, v, vb
+        torch.cuda.empty_cache()
+    lib_ms = res["library_ms"]
+    for path, name, peak in (("sm90", "bf16, sm90 kernel", PEAK_BF16_FLOPS),
+                             ("simt", "fp32, CUDA-core kernel",
+                              PEAK_FP32_FLOPS)):
+        r = res[path]
+        log(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} causal "
+            f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; "
+            f"scaled_dot_product_attention bf16 {lib_ms:.4f} ms, "
+            f"{r['ms'] / lib_ms:.2f}x; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}: {r['nbytes'] / 1e6:.1f} MB, "
+            f"{r['flops'] / 1e12:.4f} Tflop of the mask's live pairs at "
+            f"{peak / 1e12:.0f} TFLOP/s; "
+            f"{r['flops'] / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s achieved, "
+            f"{r['bound_ms'] / r['ms']:.3f} of the bound; max |kernel - "
+            f"plain| {r['max_abs_err']}"
+            + ("" if r["share"] is None else
+               f" = {r['share']:.4f} of the bf16 bound")
+            + (f"; max |sdpa - kernel| {res['lib_diff']}"
+               if path == "sm90" else "") + ")")
+    out = dict(res["sm90"], library_ms=lib_ms)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1129,11 +1171,15 @@ def expected_params(cfg) -> int:
 
 def forward_launches(cfg) -> dict:
     """Kernel launches of one prefill forward: one flash_attention per
-    attention layer (zamba2's shared ones too), one ssm_scan per mamba
+    attention layer (zamba2's shared ones too) — all through the sm90
+    kernel in bf16, the CUDA-core one in fp32 —, one ssm_scan per mamba
     layer, one wkv6 per rwkv layer."""
     def n(*types):
         return cfg.n_units * sum(b in types for b in cfg.block_pattern)
-    return {"flash_attention": n("attn", "shared_attn"),
+    attn = n("attn", "shared_attn")
+    bf16 = cfg.dtype == "bfloat16"
+    return {"flash_attention": attn, "flash_sm90": attn if bf16 else 0,
+            "flash_simt": 0 if bf16 else attn,
             "ssm_scan": n("mamba"), "wkv6": n("rwkv")}
 
 
@@ -1321,9 +1367,11 @@ def main() -> int:
             f"with spills: {len(spills)}")
         for ln in spills[:4]:
             log(f"    {ln}")
+    sass_counts(libs["flash_attention_sm90"], build.nvcc())
 
     log("phase 3: kernel vs plain version on the card (tolerance 0; "
-        "flash_attention: 2e-5 fp32, one ulp + 2e-5 bf16; ssm_scan, wkv6: "
+        "flash_attention: 2e-5 fp32, 2^-8 max|v| + one ulp + 2e-5 bf16; "
+        "ssm_scan, wkv6: "
         "(1e-5 + 2^-20 * largest chunk decay) * max |plain|)")
     t3 = time.perf_counter()
     worst = phase_kernels_vs_plain(dev)
@@ -1332,7 +1380,8 @@ def main() -> int:
     log(f"  phase 3 in {time.perf_counter() - t3:.1f} s")
 
     launches = {"ring_apply": 0, "ring_apply_whatif": 0, "ps_apply": 0,
-                "flash_attention": 0, "ssm_scan": 0, "wkv6": 0}
+                "flash_attention": 0, "flash_sm90": 0, "flash_simt": 0,
+                "ssm_scan": 0, "wkv6": 0}
     t4 = time.perf_counter()
     log("phase 4: paper shape — mlp_teacher D=2762, 1-softsync λ=30, μ=4, "
         "momentum, 300 updates")
@@ -1388,7 +1437,7 @@ def main() -> int:
             ("ps_apply", t_ps, "src/repro_torch/kernels/csrc/ps_update.cu",
              "src/repro/kernels/ps_update.py:116,128"),
             ("flash_attention", t_flash,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:123"),
             ("ssm_scan", t_ssm, "src/repro_torch/kernels/csrc/ssm_scan.cu",
              "src/repro/kernels/ssm_scan.py:85"),
@@ -1396,7 +1445,10 @@ def main() -> int:
              "src/repro/kernels/wkv6.py:106")):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            # the row's kernel is the sm90 one: its launches on the path
+            "launches": launches["flash_sm90" if name == "flash_attention"
+                                 else name],
             "max_abs_err": max(worst[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -11,10 +11,12 @@ builds (or :func:`build_all` does, all sources at once, one ``nvcc`` each).
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so no multiply-add
 is contracted into an FMA — the update kernels must round exactly like the
 plain PyTorch versions they are held against.  No fast-math.
-``flash_attention.cu``, ``ssm_scan.cu`` and ``wkv6.cu`` are held against
-their plain versions within stated tolerances, not bitwise, and build
-without ``-fmad=false`` (``SOURCE_FLAGS``); the hash covers each source's
-own flags.
+``flash_attention.cu``, ``flash_attention_sm90.cu``, ``ssm_scan.cu`` and
+``wkv6.cu`` are held against their plain versions within stated
+tolerances, not bitwise, and build without ``-fmad=false``
+(``SOURCE_FLAGS``); the hash covers each source's own flags.
+``flash_attention_sm90.cu`` finds libcuda's ``cuTensorMapEncodeTiled``
+through the runtime, so no source links against anything but cudart.
 
 The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``,
 ``ssm_scan.py``, ``wkv6.py``) share the binding helpers below: operand
@@ -37,7 +39,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("replay_ring", "ps_update", "flash_attention", "ssm_scan", "wkv6")
+SOURCES = ("replay_ring", "ps_update", "flash_attention",
+           "flash_attention_sm90", "ssm_scan", "wkv6")
 # the kernels' optimizer codes (update_event.cuh: OPT_SGD, OPT_MOMENTUM, ...)
 OPT_CODES = {"sgd": 0, "momentum": 1, "adagrad": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,7 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 # sources that need no bitwise match with their plain version: FMAs allowed
 _FMA_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
-SOURCE_FLAGS = {"flash_attention": _FMA_FLAGS, "ssm_scan": _FMA_FLAGS,
+SOURCE_FLAGS = {"flash_attention": _FMA_FLAGS,
+                "flash_attention_sm90": _FMA_FLAGS, "ssm_scan": _FMA_FLAGS,
                 "wkv6": _FMA_FLAGS}
 
 

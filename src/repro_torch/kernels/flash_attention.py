@@ -2,14 +2,26 @@
 prefill (CUDA, Hopper).
 
 Counterpart of ``repro/kernels/flash_attention.py``, whose Pallas TPU kernel
-(``flash_attention_bkgsd``: ``_attn_kernel`` / ``_attn_block``) becomes
-hand-written CUDA C++ in ``csrc/flash_attention.cu``, built by
-``kernels/build.py`` and bound with ``ctypes``.  Online-softmax attention
-with causal and sliding-window masks and the GQA fold: q is read as
-(B, KV, G, Sq, D), k/v as (B, KV, Sk, D), and the G query heads of one KV
-head share each K/V tile.  Head ``h`` of the model's (B, S, H, D) layout is
-``kv * G + g``.  The math is fp32 whatever the input type (as the TPU
-kernel's upcast); the output has q's dtype.
+(``flash_attention_bkgsd``: ``_attn_kernel`` / ``_attn_block``) becomes two
+hand-written CUDA C++ kernels, built by ``kernels/build.py`` and bound with
+``ctypes``, chosen by the operands' dtype (:func:`kernel_path`):
+
+* ``"sm90"`` — bf16 operands, ``csrc/flash_attention_sm90.cu``: both
+  products on the tensor cores (``wgmma``), K/V tiles fed by TMA through a
+  ring in shared memory, 128 query positions of one head per block against
+  128-key tiles.  P is rounded to bf16 before P·V (the TPU kernel keeps it
+  in fp32), so it is held to its plain version within
+  :func:`sm90_error_share`'s bound.  Its tensor maps impose the TMA's
+  alignment rules (:func:`tma_error`): the wrapper refuses operands that
+  break them.
+* ``"simt"`` — fp32 operands, ``csrc/flash_attention.cu``: fp32 products on
+  the CUDA cores with the TPU kernel's GQA fold (the G query heads of one KV
+  head share each K/V tile), within 2e-5 of its plain version.
+
+Both compute online-softmax attention with causal and sliding-window masks:
+q is read as (B, KV, G, Sq, D), k/v as (B, KV, Sk, D); head ``h`` of the
+model's (B, S, H, D) layout is ``kv * G + g``; the softmax statistics and
+the accumulator are fp32; the output has q's dtype.
 
 The mask constant is the TPU kernel's finite ``NEG_INF = -1e30`` and the
 normaliser is floored at 1e-30: a row whose first processed tile holds no
@@ -20,17 +32,20 @@ the TPU: causal tiles strictly above the diagonal, tiles before the window.
 
 ``flash_attention_bkgsd`` checks device, dtype, shapes and that the head dim
 is contiguous (the other axes may be strided, so the model's layout launches
-without a copy), then launches the kernel on CUDA tensors — or, for CPU
-tensors, runs :func:`flash_attention_bkgsd_plain`, the same tile loop,
-online softmax, mask constant and tile skip in plain PyTorch, which the
-kernel is held against on the card.  Nothing falls back: a CUDA call
+without a copy), then launches the dtype's kernel on CUDA tensors — or, for
+CPU tensors, runs :func:`flash_attention_bkgsd_plain`, the same tile loop,
+online softmax, mask constant and tile skip in plain PyTorch, at the tiles
+of the kernel the dtype would launch (:func:`kernel_tiles`), which the
+kernels are held against on the card.  Nothing falls back: a CUDA call
 launches or raises.  ``launches["flash_attention"]`` counts kernel launches
-(plain-version calls do not count).
+of both kernels, ``launches_by_path`` each kernel's (plain-version calls do
+not count).
 
-Tiling: the kernel takes ``ROWS = 64`` query rows (G heads × ``blk_q``
+Tiling of the fp32 kernel: ``ROWS = 64`` query rows (G heads × ``blk_q``
 positions, ``blk_q = min(ROWS // G, Sq)``) against ``BLK_K = 64`` keys per
-tile; :func:`kernel_tiles` gives them, and the plain version uses them
-unless told otherwise.
+tile.  The bf16 kernel: ``SM90_BLK = 128`` positions of one head against
+128 keys.  :func:`attention_cost` counts the work of the mask itself, which
+no tiling changes: the bound the kernels are measured against.
 """
 
 from __future__ import annotations
@@ -47,28 +62,109 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 ROWS = 64            # csrc/flash_attention.cu: query rows per block
 BLK_K = 64           # csrc/flash_attention.cu: keys per K/V tile
+SM90_BLK = 128       # csrc/flash_attention_sm90.cu: positions and keys per tile
 HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {torch.bfloat16: "sm90", torch.float32: "simt"}
 
-# kernel launches since the last reset_launches()
+# kernel launches since the last reset_launches(): both kernels, and each
 launches = {"flash_attention": 0}
+launches_by_path = {"sm90": 0, "simt": 0}
 
 
 def reset_launches() -> None:
     launches["flash_attention"] = 0
+    for path in launches_by_path:
+        launches_by_path[path] = 0
 
 
-def kernel_tiles(G: int, Sq: int, Sk: int) -> Tuple[int, int]:
-    """(blk_q, blk_k) of the CUDA kernel for G query heads per KV head."""
+def kernel_path(dtype: torch.dtype) -> str:
+    """The CUDA kernel that operands of ``dtype`` launch: ``"sm90"`` (bf16:
+    ``csrc/flash_attention_sm90.cu``) or ``"simt"`` (fp32:
+    ``csrc/flash_attention.cu``)."""
+    if dtype not in _PATHS:
+        raise ValueError(f"flash_attention takes fp32 or bf16, not {dtype}")
+    return _PATHS[dtype]
+
+
+def kernel_tiles(G: int, Sq: int, Sk: int,
+                 dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """(blk_q, blk_k) of the CUDA kernel that ``dtype`` launches, for G
+    query heads per KV head, in the plain version's terms (``blk_q``
+    positions of all G heads per query tile)."""
+    if kernel_path(dtype) == "sm90":
+        return min(SM90_BLK, Sq), min(SM90_BLK, Sk)
     if not 1 <= G <= ROWS:
         raise ValueError(f"G = {G} query heads per KV head; the kernel "
                          f"takes 1 to {ROWS}")
     return min(ROWS // G, Sq), min(BLK_K, Sk)
 
 
+def attention_cost(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
+                   causal: bool, window: int = 0,
+                   itemsize: int = 2) -> Tuple[int, int]:
+    """(bytes, flops) of one attention call: q, k and v read once and the
+    output written once, in ``itemsize``-byte elements; 4·D flops (q·k and
+    p·v, a multiply-add counted as two) for every live (query row, key)
+    pair of the mask — row i sees key j < Sk when (not causal or j <= i)
+    and (window <= 0 or j > i - window).  No tile size enters."""
+    pairs = 0
+    for i in range(Sq):
+        hi = min(Sk - 1, i) if causal else Sk - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo + 1)
+    nbytes = itemsize * (2 * B * H * Sq * D + 2 * B * KV * Sk * D)
+    return nbytes, 4 * D * B * H * pairs
+
+
+def tma_error(t: torch.Tensor) -> Optional[str]:
+    """Why the sm90 kernel cannot read or write ``t`` (None when it can):
+    its tensor maps need a contiguous last dim, a 16-byte aligned base and
+    every other stride a nonzero multiple of 16 bytes (dims of size 1 are
+    free: their stride is never used)."""
+    if t.stride(-1) != 1:
+        return "the head dim must be contiguous"
+    if t.data_ptr() % 16:
+        return f"base address {t.data_ptr():#x} is not 16-byte aligned"
+    for d in range(t.dim() - 1):
+        nbytes = t.stride(d) * t.element_size()
+        if t.shape[d] > 1 and (nbytes == 0 or nbytes % 16):
+            return (f"stride {t.stride(d)} of dim {d} is {nbytes} bytes, "
+                    f"not a nonzero multiple of 16")
+    return None
+
+
+def _tma_strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """``t``'s element strides without the last (contiguous) dim, a dim of
+    size 1 given the packed stride (its own may break the TMA's rules and
+    is never used)."""
+    out = [0] * (t.dim() - 1)
+    packed = t.shape[-1]
+    for d in range(t.dim() - 2, -1, -1):
+        out[d] = t.stride(d) if t.shape[d] > 1 else packed
+        packed = out[d] * t.shape[d]
+    return tuple(out)
+
+
+def sm90_error_share(got: torch.Tensor, want: torch.Tensor,
+                     v: torch.Tensor, fp32_tol: float = 2e-5) -> float:
+    """max |got − want| as a share of the sm90 kernel's bound against its
+    plain version, over two (B, KV, G, Sq, D) outputs; v: (B, KV, Sk, D).
+
+    The bound: 2⁻⁸ · max|v| over the (b, kv head)'s keys (P is rounded to
+    bf16 before P·V: each p moves by at most 2⁻⁸·p, and the p of a row sum
+    to l) + one bf16 ulp of the larger of |got|, |want| (each rounded once)
+    + ``fp32_tol`` (fp32 sums in another order).  At most 1 when within."""
+    a, b = got.float(), want.float()
+    vmax = v.float().abs().amax(dim=(-2, -1))[:, :, None, None, None]
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return float(((a - b).abs() / (2.0 ** -8 * vmax + ulp + fp32_tol)).max())
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built kernel with its C signature declared; its tile constants
+    """The fp32 kernel with its C signature declared; its tile constants
     must be the ones this module assumes."""
     lib = build.load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -81,6 +177,22 @@ def _library() -> ctypes.CDLL:
         fn.restype = i
         if fn() != want:
             raise RuntimeError(f"{name}() = {fn()}, expected {want}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_library() -> ctypes.CDLL:
+    """The bf16 kernel with its C signature declared."""
+    lib = build.load("flash_attention_sm90")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_sm90_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                             f, i, i, p]
+    lib.flash_attention_sm90_fwd.restype = i
+    lib.flash_attention_sm90_block.restype = i
+    if lib.flash_attention_sm90_block() != SM90_BLK:
+        raise RuntimeError(f"flash_attention_sm90_block() = "
+                           f"{lib.flash_attention_sm90_block()}, expected "
+                           f"{SM90_BLK}")
     return lib
 
 
@@ -106,6 +218,43 @@ def _shapes(q, k, v) -> Tuple[int, int, int, int, int, int]:
     return B, KV, G, Sq, Sk, D
 
 
+def _launch_simt(q, k, v, out, causal, window, stream) -> None:
+    B, KV, G, Sq, Sk, D = _shapes(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a contiguous head dim")
+    strides = (q.stride(0), q.stride(1), q.stride(2), q.stride(3),
+               k.stride(0), k.stride(1), 0, k.stride(2),
+               v.stride(0), v.stride(1), 0, v.stride(2),
+               out.stride(0), out.stride(1), out.stride(2), out.stride(3))
+    lib = _library()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        (ctypes.c_longlong * 16)(*strides), B, KV, G, Sq, Sk, D,
+        _DTYPES[q.dtype], kernel_tiles(G, Sq, Sk)[0],
+        float(1.0 / math.sqrt(D)), int(causal), int(window), stream)
+    build.raise_on(lib, "flash_attention", err, "flash_attention")
+
+
+def _launch_sm90(q, k, v, out, causal, window, stream) -> None:
+    B, KV, G, Sq, Sk, D = _shapes(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        why = tma_error(t)
+        if why is not None:
+            raise ValueError(f"{name}: {why} (the sm90 kernel's TMA rules)")
+    strides = (_tma_strides(q) + _tma_strides(k) + _tma_strides(v)
+               + _tma_strides(out))
+    lib = _sm90_library()
+    err = lib.flash_attention_sm90_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        (ctypes.c_longlong * 14)(*strides), B, KV, G, Sq, Sk, D,
+        float(1.0 / math.sqrt(D)), int(causal), int(window), stream)
+    build.raise_on(lib, "flash_attention_sm90", err, "flash_attention")
+
+
+_LAUNCH = {"sm90": _launch_sm90, "simt": _launch_simt}
+
+
 def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, window: int = 0,
                           blk_q: Optional[int] = None,
@@ -115,16 +264,16 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, KV, G, Sq, D); k/v: (B, KV, Sk, D).  Returns a q-shaped
     output in q's dtype (written into ``out`` when given: a q-shaped view
     with a contiguous head dim).  ``blk_q`` / ``blk_k`` tile the plain
-    version on the CPU; the CUDA kernel has its own (:func:`kernel_tiles`)
+    version on the CPU; each CUDA kernel has its own (:func:`kernel_tiles`)
     and refuses others."""
     B, KV, G, Sq, Sk, D = _shapes(q, k, v)
-    kq, kk = kernel_tiles(G, Sq, Sk)
     dev = q.device
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     elif (tuple(out.shape) != tuple(q.shape) or out.dtype != q.dtype
           or out.device != dev):
         raise ValueError(f"out must be {tuple(q.shape)} {q.dtype} on {dev}")
+    kq, kk = kernel_tiles(G, Sq, Sk, q.dtype)
     if dev.type == "cpu":
         out.copy_(flash_attention_bkgsd_plain(
             q, k, v, causal=causal, window=window, blk_q=blk_q or kq,
@@ -138,21 +287,11 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"not {(blk_q, blk_k)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}; the kernel takes {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must have a contiguous head dim")
-    strides = (q.stride(0), q.stride(1), q.stride(2), q.stride(3),
-               k.stride(0), k.stride(1), 0, k.stride(2),
-               v.stride(0), v.stride(1), 0, v.stride(2),
-               out.stride(0), out.stride(1), out.stride(2), out.stride(3))
-    lib = _library()
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        (ctypes.c_longlong * 16)(*strides), B, KV, G, Sq, Sk, D,
-        _DTYPES[q.dtype], kq, float(1.0 / math.sqrt(D)), int(causal),
-        int(window), torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on(lib, "flash_attention", err, "flash_attention")
+    path = kernel_path(q.dtype)
+    _LAUNCH[path](q, k, v, out, causal, window,
+                  torch.cuda.current_stream(dev).cuda_stream)
     launches["flash_attention"] += 1
+    launches_by_path[path] += 1
     return out
 
 

@@ -9,10 +9,12 @@ values are the reference's):
                 plain PyTorch fallback (its P·V product takes bf16
                 probabilities and values with fp32 accumulation, as the
                 reference's).
-* ``pallas``  — in the port, the hand-written CUDA flash-attention kernel
-                (``kernels/csrc/flash_attention.cu`` through
-                ``kernels.ops.flash_attention``); on CPU tensors that
-                wrapper runs the kernel's plain PyTorch version.
+* ``pallas``  — in the port, the hand-written CUDA flash-attention kernels
+                through ``kernels.ops.flash_attention``: bf16 operands
+                launch ``kernels/csrc/flash_attention_sm90.cu`` (tensor
+                cores), fp32 ones ``kernels/csrc/flash_attention.cu``; on
+                CPU tensors that wrapper runs the kernels' plain PyTorch
+                version.
 
 The decode path (one new token against a cache) is a plain einsum, as in
 the reference: the score row is (B, H, C), which is small.  Sliding-window

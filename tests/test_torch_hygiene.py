@@ -58,7 +58,8 @@ def test_port_file_list_is_complete():
                      "configs/zamba2_7b.py", "configs/rwkv6_7b.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
-                   "flash_attention.cu", "ssm_scan.cu", "wkv6.cu"):
+                   "flash_attention.cu", "flash_attention_sm90.cu",
+                   "ssm_scan.cu", "wkv6.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file()
 
 
