@@ -14,11 +14,16 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    seconds and ptxas lines with spills; for ``flash_attention_sm90`` the
    counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
    its SASS (``cuobjdump -sass``), each required to be nonzero, and ptxas's
-   wgmma warnings.
+   wgmma warnings; for the redesigned ``ring_apply_whatif`` kernel and the
+   four ``ssm_scan`` kernels, their registers and spill bytes (ptxas).
 3. Kernel vs plain version on the card: ``ring_apply`` over optimizer ×
    mode × ring dtype and ``ring_apply_whatif`` over optimizer × ring dtype,
    at D = 2²² + 37 (a ragged edge), c = 32, K ∈ {3, 1} (K = 1: hardsync,
-   the read and written rows are one); ``ps_apply`` over optimizer × mode
+   the read and written rows are one); ``ring_apply_whatif``'s two
+   variants (c = 64 slots pulling 1, 2 and ``WHATIF_ROWS`` distinct rows,
+   and one more, in short and in long runs of equal rows) with the slot row
+   pulled and at K = 1, at D = 2²² (its 8-wide
+   path) and the ragged D; ``ps_apply`` over optimizer × mode
    at the same D and c (its inputs must come back unchanged: it writes
    out of place).  Tolerance: 0 — bitwise.  Then ``flash_attention`` at
    qwen2_1_5b's GQA (H = 12 over KV = 2, D = 128) and a ragged S = 1 000:
@@ -35,7 +40,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    with B / C as column slices of one tensor in bf16 and in fp32, and
    ``wkv6`` at rwkv6_7b's head (H 64, P 64, chunk 32) with r / k / v in
    bf16 and fp32, at the model's decay and at one whose exp above the
-   diagonal overflows; B 2, a ragged S = 1 000; the output and the final
+   diagonal overflows; B 2, a ragged S = 1 000 (and ``ssm_scan`` at every
+   N and P it takes, S = 333, chunks 64 / 128 / 256); the output and the final
    state each held within (1e-5 + 2⁻²⁰ · span) of the plain version's
    largest magnitude, span the largest cumulative log decay of a chunk
    (fp32 sums in another order with FMAs, plus eight ulps of the
@@ -77,7 +83,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    the share of the bound reached; and
    ``ssm_scan`` and ``wkv6`` at one layer of their model's prefill (B 1,
    S 8 192, bf16 operands) beside their plain versions and bounds (no
-   PyTorch call computes either: no library time).
+   PyTorch call computes either: no library time); ``ring_apply_whatif``
+   also with the older ring row pulled (2 distinct rows) in 4 runs, as the
+   lane's events come, and in short runs; ``ssm_scan``'s time per call
+   split by its four kernels (``torch.profiler``).  Each
+   time with its achieved rates and its share of the bound.
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
    ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
@@ -113,6 +123,7 @@ counted per kernel (``flash_sm90``, ``flash_simt``).
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -186,8 +197,14 @@ def assert_bitwise(xs, ys, what: str) -> float:
 # ---------------------------------------------------------------------------
 # event inputs
 # ---------------------------------------------------------------------------
-def event_inputs(D, c, K, opt, dtype, whatif, seed, dev):
-    """One event's operands on the card, from a torch.Generator seed."""
+def event_inputs(D, c, K, opt, dtype, whatif, seed, dev, n_rows=None,
+                 slot_pulled=False, long_runs=False):
+    """One event's operands on the card, from a torch.Generator seed.
+    ``n_rows``: the what-if slots pull exactly that many distinct rows, in
+    runs of 1 to 3 equal slots, or (``long_runs``) in max(n_rows, 4) equal
+    runs, as a trace's slots come (the what-if lane's events pull 2 rows in
+    2 or 3 runs); ``slot_pulled``: the slot row may be among them (an older
+    snapshot the event reads before it writes)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -204,10 +221,27 @@ def event_inputs(D, c, K, opt, dtype, whatif, seed, dev):
     # pulled rows: any row but the slot row (as in a trace, where the row
     # being overwritten is older than any live pull)
     prev, slot = 0, 1 % K
-    rows = torch.tensor([r for r in range(K) if r != slot] or [0],
-                        device=dev)
-    ts = rows[torch.randint(0, rows.numel(), (c,), generator=gen,
-                            device=dev)]
+    rows = torch.tensor([r for r in range(K) if r != slot or slot_pulled]
+                        or [0], device=dev)
+    if n_rows is None:
+        ts = rows[torch.randint(0, rows.numel(), (c,), generator=gen,
+                                device=dev)]
+    else:
+        pulled = rows[:n_rows].tolist()
+        if len(pulled) != n_rows:
+            raise ValueError(f"{n_rows} distinct rows from a ring of {K}")
+        lens = torch.randint(1, 4, (c,), generator=gen, device=dev).tolist()
+        picks = torch.randint(0, n_rows, (c,), generator=gen,
+                              device=dev).tolist()
+        if long_runs:
+            n = max(n_rows, 4)
+            lens, picks = [-(-c // n)] * n, [k % n_rows for k in range(n)]
+        seq = []
+        for k in range(len(lens)):   # each pulled row, then random runs
+            seq += [pulled[k] if k < n_rows else pulled[picks[k]]] * lens[k]
+        ts = torch.tensor(seq[:c], device=dev)
+        if len(set(ts.tolist())) != n_rows:
+            raise ValueError(f"ts {ts.tolist()} has no {n_rows} rows")
     idx = torch.cat([torch.tensor([prev, slot], device=dev), ts]).to(
         torch.int32)
     ops = dict(ring=ring, s=s, res=res, coef=coef, lrs=lrs, idx=idx)
@@ -343,6 +377,37 @@ def bound_ms(nbytes, nops):
                                  else "operations")
 
 
+def ptxas_by_kernel(lib, families):
+    """Phase 2 for the redesigned kernels: from ptxas's ``-v`` lines in the
+    build log, each kernel family's registers and spill bytes (the largest
+    over its template instantiations), e.g. {"ssd_out_kernel": (96, 0, 0)}."""
+    out, cur = {}, None
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = next((f for f in families if f in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        r0, st0, ld0 = out.get(cur, (0, 0, 0))
+        if regs:
+            out[cur] = (max(r0, int(regs.group(1))), st0, ld0)
+        if spill:
+            out[cur] = (r0, max(st0, int(spill.group(1))),
+                        max(ld0, int(spill.group(2))))
+    for f in families:
+        r, st, ld = out.get(f, (0, 0, 0))
+        log(f"  {lib.name.split('-')[0]} {f}: at most {r} registers, "
+            f"{st} bytes spill stores, {ld} bytes spill loads (ptxas, over "
+            f"its instantiations)")
+        if f not in out:
+            raise AssertionError(f"{f}: no ptxas lines in {lib}")
+    return out
+
+
 def sass_counts(lib, nvcc):
     """Phase 2 for the sm90 flash kernel: its wgmma (``HGMMA``) and TMA
     load (``UTMALDG``) instructions in the built library's SASS, each
@@ -393,6 +458,8 @@ def phase_kernels_vs_plain(dev) -> dict:
                                                  err)
                 log(f"  ring_apply_whatif {opt:8s} combine    {dtype} "
                     f"K={K}  D={D} c={c}  max|kernel-plain| = {err}")
+    worst["ring_apply_whatif"] = max(worst["ring_apply_whatif"],
+                                     phase_whatif_rows(dev))
     worst["ps_apply"] = 0.0
     for opt in ("sgd", "momentum", "adagrad"):
         for mode in ("combine", "sequential"):
@@ -404,6 +471,37 @@ def phase_kernels_vs_plain(dev) -> dict:
                 f"       D={D} c={c}  max|kernel-plain| = {err}; "
                 f"inputs unchanged")
     return worst
+
+
+def phase_whatif_rows(dev) -> float:
+    """The what-if kernel's two variants: slots pulling 1, 2 and
+    ``WHATIF_ROWS`` distinct rows (the register variant) and one more (the
+    per-slot variant), the slot row among them at K = 2, and hardsync's
+    K = 1; at D = 2²² (the 8-wide path) and the ragged ``CHECK_D``
+    (1-wide), c = 32, every optimizer, fp32 and bf16 rings.  Bitwise."""
+    from repro_torch.kernels.replay_ring import WHATIF_ROWS
+    from repro_torch.optim import UpdateSpec
+    cases = [(3, 1, False), (3, 2, False), (2, 2, True),
+             (WHATIF_ROWS + 1, WHATIF_ROWS, False),
+             (WHATIF_ROWS + 2, WHATIF_ROWS + 1, False), (1, 1, True)]
+    for D in (1 << 22, CHECK_D):
+        for K, n_rows, slot_pulled in cases:
+            for long_runs in (False, True):
+                for opt in ("sgd", "momentum", "adagrad"):
+                    for dtype in ("fp32", "bf16"):
+                        ops = event_inputs(D, 64, K, opt, dtype, True, 17,
+                                           dev, n_rows=n_rows,
+                                           slot_pulled=slot_pulled,
+                                           long_runs=long_runs)
+                        compare(ops, UpdateSpec(opt), "combine", True,
+                                f"ring_apply_whatif {opt}/{dtype}/D={D}/K={K}"
+                                f"/{n_rows} rows/long runs {long_runs}")
+        log(f"  ring_apply_whatif D={D} c=64: distinct pulled rows "
+            f"{[n for _, n, _ in cases]} (register variant up to "
+            f"{WHATIF_ROWS}; the slot row pulled at K=2; K=1), in runs of "
+            f"1-3 slots and of 16 x sgd, momentum, adagrad x fp32, bf16: "
+            f"max|kernel-plain| = 0.0")
+    return 0.0
 
 
 def counted(fn):
@@ -694,14 +792,15 @@ def time_library(fn, kern_w, reps):
 
 
 def time_kernel(name, D, c, K, opt, dtype, mode, whatif, dev, reps,
-                plain_reps):
+                plain_reps, **pulls):
     """Time one ring kernel and its plain version at one shape (and, for an
     fp32 ring's sgd combine event, ``torch.addmv`` writing the slot row);
-    hold one launch of each against the other first."""
+    hold one launch of each against the other first.  ``pulls``: the
+    what-if slots' rows (``event_inputs``' n_rows, slot_pulled)."""
     import torch
     from repro_torch.optim import UpdateSpec
     spec = UpdateSpec(opt)
-    ops = event_inputs(D, c, K, opt, dtype, whatif, 21, dev)
+    ops = event_inputs(D, c, K, opt, dtype, whatif, 21, dev, **pulls)
     err = compare(ops, spec, mode, whatif, f"{name} at the path's shape")
     ms = cuda_ms(lambda: run_kernel(ops, spec, mode, whatif), reps)
     plain_ms = cuda_ms(lambda: run_plain(ops, spec, mode, whatif),
@@ -718,10 +817,16 @@ def time_kernel(name, D, c, K, opt, dtype, mode, whatif, dev, reps,
             out=ring[1 % K]), kern, reps)
         log(f"  torch.addmv into the slot row: {lib_ms:.4f} ms, "
             f"max |addmv - kernel| = {lib_diff}")
-    log(f"  {name:18s} {opt} {mode} {dtype} D={D} c={c} K={K}: "
+    ts = ops["idx"][2:].tolist()
+    rows = (f", {len(set(ts))} distinct pulled rows in "
+            f"{1 + sum(a != b for a, b in zip(ts, ts[1:]))} runs"
+            if whatif else "")
+    log(f"  {name:18s} {opt} {mode} {dtype} D={D} c={c} K={K}{rows}: "
         f"{ms:.4f} ms (plain {plain_ms:.4f} ms; bound {bms:.4f} ms by "
         f"{by}: {nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} Gop; "
-        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s and "
+        f"{nops / (ms * 1e-3) / 1e12:.2f} Top/s achieved, "
+        f"{bms / ms:.3f} of the bound)")
     del ops
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -1027,6 +1132,15 @@ def phase_scans_vs_plain(dev) -> dict:
                 f"chunk={h['chunk']} B/C {str(dt)[6:]}")
         err, _ = ssm_pair(ops, h["chunk"], what)
         worst["ssm_scan"] = max(worst["ssm_scan"], err)
+    from repro_torch.kernels.ssm_scan import HEAD_DIMS, STATE_DIMS
+    cells = [(N, P) for N in STATE_DIMS for P in HEAD_DIMS]
+    for k, (N, P) in enumerate(cells):
+        chunk, dt = (64, 128, 256)[k % 3], (torch.bfloat16,
+                                             torch.float32)[k % 2]
+        ops = ssm_inputs(2, 333, 4, P, N, dt, 30 + k, dev)
+        err, _ = ssm_pair(ops, chunk, f"ssm_scan B=2 S=333 H=4 P={P} N={N} "
+                                      f"chunk={chunk} B/C {str(dt)[6:]}")
+        worst["ssm_scan"] = max(worst["ssm_scan"], err)
     h = WKV_HEAD
     for dt in (torch.bfloat16, torch.float32):
         for strong in (False, True):
@@ -1087,6 +1201,34 @@ def scan_bound(nbytes, nops):
                                  else "operations")
 
 
+def short_name(kernel: str) -> str:
+    """A profiler kernel name without its namespace and template list."""
+    m = re.search(r"::(\w+)", kernel) or re.search(r"(\w+)", kernel)
+    return m[1] if m else kernel
+
+
+def kernel_split(fn, reps=3):
+    """{kernel name: ms per call} of ``fn``'s device kernels over ``reps``
+    calls, from ``torch.profiler`` (the split of a call that launches
+    several kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            out[ev.key] = us / 1e3 / reps
+    return out
+
+
 def time_scan(name, ops, chunk, cost, dev):
     """Per-launch time of ``ssm_scan`` / ``wkv6`` at the prefill shape
     beside its plain version and its bound (no PyTorch call computes
@@ -1108,7 +1250,13 @@ def time_scan(name, ops, chunk, cost, dev):
         f"{bms:.4f} ms by {by}: {nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} "
         f"Gflop at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32; "
         f"{nops / (ms * 1e-3) / 1e12:.2f} TFLOP/s and "
-        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved, "
+        f"{bms / ms:.3f} of the bound)")
+    if name == "ssm_scan":   # four kernels per call: where its time goes
+        split = kernel_split(lambda: kern(*ops, chunk=chunk))
+        log("    per call, by kernel (torch.profiler): " + "; ".join(
+            f"{short_name(k)} {v:.4f} ms"
+            for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
     del ops
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -1368,6 +1516,9 @@ def main() -> int:
         for ln in spills[:4]:
             log(f"    {ln}")
     sass_counts(libs["flash_attention_sm90"], build.nvcc())
+    ptxas_by_kernel(libs["replay_ring"], ("ring_apply_whatif_kernel",))
+    ptxas_by_kernel(libs["ssm_scan"], ("ssd_cb_kernel", "ssd_state_kernel",
+                                       "ssd_pass_kernel", "ssd_out_kernel"))
 
     log("phase 3: kernel vs plain version on the card (tolerance 0; "
         "flash_attention: 2e-5 fp32, 2^-8 max|v| + one ulp + 2e-5 bf16; "
@@ -1410,6 +1561,11 @@ def main() -> int:
     t_whatif = time_kernel("ring_apply_whatif", 1_777_086_464, 128,
                            whatif_K, "sgd", "bf16", "combine", True, dev, 5,
                            1)
+    if whatif_K > 1:   # the older ring row pulled too: the lane's 2 rows in
+        for long_runs in (True, False):   # a few runs, and in short runs
+            time_kernel("ring_apply_whatif", 1_777_086_464, 128, whatif_K,
+                        "sgd", "bf16", "combine", True, dev, 5, 1, n_rows=2,
+                        slot_pulled=True, long_runs=long_runs)
     t_ps = time_ps("sgd", "combine", WIDE_D, 128, dev, 20, 5)
     time_ps("momentum", "combine", WIDE_D, 128, dev, 20, 5)
     t_flash = time_flash(dev, 32768)

@@ -2,8 +2,9 @@
 
 The campaign layer caches results by **content address**: a ``spec_hash``
 is a sha256 (truncated to 16 hex chars) over a canonical form of the
-spec's JSON echo, the results schema version, and the registered problem
-identity.  Two constructions of the same experiment — live
+spec's JSON echo, the results schema version, the registered problem
+identity and the backend (``"torch"``: this package's records never take
+the JAX package's addresses).  Two constructions of the same experiment — live
 ``ExperimentSpec`` or a JSON-round-tripped record ``spec`` dict, today or
 after new config fields grow defaults — must hash identically, so the
 canonical form normalizes everything that is representation rather than
@@ -42,6 +43,9 @@ from typing import Any, Dict, Mapping, Optional
 # Bumping the results schema (result.SCHEMA_VERSION) intentionally
 # invalidates every content address — ``validate --migrate`` re-stamps.
 HASH_LEN = 16
+# hashed with every spec: the JAX package's payload has no backend key,
+# so the two packages never share an address for one spec
+BACKEND = "torch"
 
 # ---------------------------------------------------------------------------
 # problem identity: name@version, torch-free
@@ -180,9 +184,13 @@ def content_hash(obj: Any) -> str:
 
 def spec_hash_from_echo(echo: Mapping[str, Any]) -> str:
     """The content address of one experiment, computed from its JSON echo
-    (works identically on live ``spec.echo()`` and stored record specs)."""
+    (works identically on live ``spec.echo()`` and stored record specs).
+    The payload names the backend (:data:`BACKEND`), so a record of this
+    package never carries the JAX package's address for the same spec and
+    neither package's results are taken for the other's."""
     from repro_torch.experiments.result import SCHEMA_VERSION
     payload = {
+        "backend": BACKEND,
         "schema": SCHEMA_VERSION,
         "problem": problem_identity(echo.get("problem")),
         "spec": canonical_echo(echo),

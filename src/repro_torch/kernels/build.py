@@ -20,7 +20,7 @@ through the runtime, so no source links against anything but cudart.
 
 The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``,
 ``ssm_scan.py``, ``wkv6.py``) share the binding helpers below: operand
-checks, the 16-byte vector-path test and the launch error check.
+checks, the 16-byte vector-path tests and the launch error check.
 """
 
 from __future__ import annotations
@@ -165,6 +165,13 @@ def vec4(D: int, *tensors) -> int:
     ok = D % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
                             for t in tensors if t is not None)
     return int(ok)
+
+
+def vec8(D: int, *tensors) -> int:
+    """1 when D % 8 == 0 and every base is 16-byte aligned, so 8 elements
+    of any row start on a 16-byte boundary: the what-if kernel's path."""
+    return int(D % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in tensors if t is not None))
 
 
 def raise_on(lib: ctypes.CDLL, source: str, err: int, kernel: str) -> None:

@@ -7,7 +7,8 @@
 //
 // What it computes, per (b, kv head) and query row (g, i) of its G rows:
 //   s_j = (q . k_j) * scale, masked to -1e30 where k_j >= Sk, or causal and
-//         j > i, or window > 0 and j <= i - window;
+//         j > i, or window > 0 and j <= i - window; with Sk < 64 the keys
+//         k_j >= Sk are padding of the one tile and take -inf instead;
 //   over the K tiles that hold a live key, in order:
 //     m' = max(m, max_j s_j); p_j = exp(s_j - m'); alpha = exp(m - m')
 //     l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j
@@ -17,7 +18,13 @@
 // next tile's alpha = exp(-1e30 - m') = 0 wipes out exactly, where -inf would
 // give exp(-inf + inf) = NaN.  Tiles with no live key are skipped as the TPU
 // kernel skips them: K tiles strictly above the causal diagonal of the query
-// tile, and K tiles entirely before the sliding window.
+// tile, and K tiles entirely before the sliding window.  Padded keys are not
+// masked keys: the plain version's key tile is min(64, Sk) wide, so with
+// Sk < 64 a row with no live key averages the Sk real keys there.  Here the
+// tile is 64 wide, so its keys past Sk take -inf (exp gives 0; m stays at
+// least -1e30, so no -inf - -inf arises) and that row averages the same Sk
+// keys.  With Sk >= 64 the plain version pads its last tile with -1e30 keys
+// too, and so does the kernel.
 //
 // Work layout.  One thread block per (q tile, b * KV + kv).  A q tile is
 // blk_q query positions of one KV head times its G query heads: the
@@ -128,10 +135,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int nk = (Sk + BK - 1) / BK;
+  const int bk = Sk < BK ? Sk : BK;   // the plain version's key tile
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     if (causal && k0 > q_hi) break;                      // above the diagonal
-    if (window > 0 && k0 + BK - 1 <= q0 - window) continue;  // before the window
+    if (window > 0 && k0 + bk - 1 <= q0 - window) continue;  // before the window
     __syncthreads();   // the last tile's readers are done (and Q is stored)
     for (int e = tid; e < BK * D; e += THREADS) {
       const int c = e / D, d = e % D;
@@ -169,7 +177,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kp = k0 + tx + 16 * j;
         const bool live = kp < Sk && (!causal || kp <= qpos[i]) &&
                           (window <= 0 || kp > qpos[i] - window);
-        s[i][j] = live ? s[i][j] * scale : NEG_INF;
+        s[i][j] = live ? s[i][j] * scale
+                       : (kp >= Sk && Sk < BK) ? -INFINITY : NEG_INF;
         mt = fmaxf(mt, s[i][j]);
       }
 #pragma unroll

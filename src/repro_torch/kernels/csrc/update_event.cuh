@@ -13,7 +13,7 @@
 //                                order 0..c-1, then one event at lrs[0];
 //                       sequential  c events of coef[j] * g[j, e] at lrs[j]
 //                       (repro_torch/optim/backends.py::apply_event_flat)
-//   ld / st             V-wide loads and stores (V = 4: 16-byte vectors)
+//   ld / st             V-wide loads and stores (V = 4, 8: 16-byte vectors)
 //   blocks_for          the 1-D grid over D both kernels launch
 //
 // Numerics: every operation is an explicitly rounded fp32 intrinsic
@@ -41,6 +41,10 @@ template <> __device__ __forceinline__ void ld<4>(const float* p, float* o) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
 }
+template <> __device__ __forceinline__ void ld<8>(const float* p, float* o) {
+  ld<4>(p, o);
+  ld<4>(p + 4, o + 4);
+}
 template <int V>
 __device__ __forceinline__ void ld(const __nv_bfloat16* p, float* o);
 template <>
@@ -55,6 +59,17 @@ __device__ __forceinline__ void ld<4>(const __nv_bfloat16* p, float* o) {
   o[0] = __low2float(lo); o[1] = __high2float(lo);
   o[2] = __low2float(hi); o[3] = __high2float(hi);
 }
+template <>
+__device__ __forceinline__ void ld<8>(const __nv_bfloat16* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    o[2 * i] = __low2float(b);
+    o[2 * i + 1] = __high2float(b);
+  }
+}
 
 template <int V> __device__ __forceinline__ void st(float* p, const float* v);
 template <> __device__ __forceinline__ void st<1>(float* p, const float* v) {
@@ -62,6 +77,10 @@ template <> __device__ __forceinline__ void st<1>(float* p, const float* v) {
 }
 template <> __device__ __forceinline__ void st<4>(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <> __device__ __forceinline__ void st<8>(float* p, const float* v) {
+  st<4>(p, v);
+  st<4>(p + 4, v + 4);
 }
 
 // ---- THE update rule (repro_torch/optim/spec.py::update_event) ------------

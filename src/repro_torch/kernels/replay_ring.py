@@ -8,8 +8,13 @@ bound with ``ctypes``.  One event:
     ring-read(prev row) → [+ error-feedback residue] → combine / sequential
     optimizer event → quantize → ring-write(slot row) [+ residue write]
 
-On this card both are memory-bound (a few fp32 operations per byte moved);
-the source's header says what the first design does about it.  The
+On this card ``ring_apply`` is memory-bound (a few fp32 operations per
+byte moved) and ``ring_apply_whatif`` bound by its slot-order sum (a
+multiply and an add per slot and element).  The what-if kernel reads each
+distinct pulled row once and forms its gⱼ once (up to
+:data:`WHATIF_ROWS` distinct rows, held in registers; an event with more
+takes a per-slot variant in the same launch); the source's header says
+why.  The
 reference's ``(rows, 128)`` tiling and ``padded_width`` served the TPU's
 layout only: here the ring has width D and the kernels mask the ragged edge.
 
@@ -37,6 +42,9 @@ from repro_torch.optim.spec import UpdateSpec
 launches = {"ring_apply": 0, "ring_apply_whatif": 0}
 
 _RING_DTYPES = (torch.float32, torch.bfloat16)
+# distinct pulled rows the what-if kernel holds in registers
+# (csrc/replay_ring.cu: WHATIF_ROWS)
+WHATIF_ROWS = 4
 
 Ring3 = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -58,6 +66,11 @@ def _library() -> ctypes.CDLL:
     lib.ring_apply_whatif.argtypes = [p, i, p, p, p, p, p, p, p,
                                       ctypes.c_longlong, i, i, f, f, i, p]
     lib.ring_apply_whatif.restype = i
+    lib.ring_apply_whatif_rows.restype = i
+    if lib.ring_apply_whatif_rows() != WHATIF_ROWS:
+        raise RuntimeError(f"ring_apply_whatif_rows() = "
+                           f"{lib.ring_apply_whatif_rows()}, expected "
+                           f"{WHATIF_ROWS}")
     return lib
 
 
@@ -150,7 +163,7 @@ def ring_apply_whatif(ring: torch.Tensor, s: Optional[torch.Tensor],
         build.ptr(res), a.data_ptr(), wstar.data_ptr(), coef.data_ptr(),
         lrs.data_ptr(), idx.data_ptr(), D, c,
         build.OPT_CODES[spec.optimizer], spec.momentum, spec.eps,
-        build.vec4(D, ring, s, res, a, wstar),
+        build.vec8(D, ring, s, res, a, wstar),
         torch.cuda.current_stream().cuda_stream)
     build.raise_on(lib, "replay_ring", err, "ring_apply_whatif")
     launches["ring_apply_whatif"] += 1

@@ -35,7 +35,16 @@ instead, where a = 0 leaves the carried state unchanged, as the padding
 does.  ``ssm_scan`` checks shapes, dtypes and strides, then launches the
 kernel on CUDA tensors — or, for CPU tensors, runs :func:`ssm_scan_plain`,
 which the kernel is held against on the card.  Nothing falls back: a CUDA
-call launches or raises.  ``launches["ssm_scan"]`` counts kernel launches.
+call launches or raises.
+
+On the card one call is four launches on the current stream, the staged
+algorithm of the source's header: C·Bᵀ per (b, chunk), each chunk's state
+contribution per (b, h, chunk), the state pass per (b, h), and y per (b, h,
+chunk, 64-row block).  The wrapper allocates their scratch with
+``torch.empty`` (:func:`scratch_shapes`): at zamba2_7b's layer (B 1,
+S 8 192, H 112, N = P = 64, chunk 256) 8.4 MB of C·Bᵀ, 3.7 MB of cumulative
+sums and 58.7 MB of per-chunk states.  ``launches["ssm_scan"]`` counts one
+per call, whatever the number of kernels it launched.
 """
 
 from __future__ import annotations
@@ -68,7 +77,8 @@ def _library() -> ctypes.CDLL:
     must be the one this module assumes."""
     lib = build.load("ssm_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssm_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.ssm_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                 i, i, i, i, i, i, i, p]
     lib.ssm_scan_fwd.restype = i
     lib.ssm_scan_max_chunk.restype = i
     if lib.ssm_scan_max_chunk() != MAX_CHUNK:
@@ -102,6 +112,28 @@ def _shapes(x, a, Bm, Cm) -> Tuple[int, int, int, int, int]:
     return Bt, S, H, P, Bm.shape[-1]
 
 
+def scratch_shapes(Bt: int, S: int, H: int, P: int, N: int,
+                   Q: int) -> Tuple[Tuple[int, ...], ...]:
+    """The kernel's fp32 scratch: C·Bᵀ (B, nc, Q, ldq), the cumulative
+    sums (B, H, nc, Q) and the per-chunk states (B, nc, H, N, P), nc =
+    ⌈S / Q⌉, ldq = Q rounded up to a multiple of 4 (16-byte rows)."""
+    nc = -(-S // Q)
+    return (Bt, nc, Q, -(-Q // 4) * 4), (Bt, H, nc, Q), (Bt, nc, H, N, P)
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every row of ``t``'s last dim starts on a 16-byte boundary (the
+    kernel reads them 16 bytes at a time)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy when its rows are not aligned."""
+    return t if _rows_aligned(t) else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,16 +157,19 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                          f"P in {HEAD_DIMS} and N in {STATE_DIMS}")
     if x.stride(-1) != 1 or Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
         raise ValueError("x, Bm and Cm must have a contiguous last dim")
+    x, Bm, Cm = _aligned(x), _aligned(Bm), _aligned(Cm)
     y = torch.empty((Bt, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=dev)
+    cb, cum, st = (torch.empty(shape, dtype=torch.float32, device=dev)
+                   for shape in scratch_shapes(Bt, S, H, P, N, Q))
     strides = (x.stride(0), x.stride(1), x.stride(2),
                a.stride(0), a.stride(1), a.stride(2),
                Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
     lib = _library()
     err = lib.ssm_scan_fwd(
         x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        y.data_ptr(), state.data_ptr(),
-        (ctypes.c_longlong * 10)(*strides), Bt, S, H, P, N, Q,
+        y.data_ptr(), state.data_ptr(), cb.data_ptr(), cum.data_ptr(),
+        st.data_ptr(), (ctypes.c_longlong * 10)(*strides), Bt, S, H, P, N, Q,
         _BC_DTYPES[Bm.dtype], torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(lib, "ssm_scan", err, "ssm_scan")
     launches["ssm_scan"] += 1

@@ -318,6 +318,34 @@ def test_flash_kernel_matches_plain_on_card(H, KV, D, causal, window, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G,causal,window", [(2, False, 16), (1, True, 8)])
+def test_flash_fp32_rows_without_live_key_at_short_sk_on_card(
+        G, causal, window, cuda):
+    """Sk = 40 < 64 keys, Sq = 100 queries in a window: the rows past
+    Sk − 1 + window see no live key.  In a processed query tile such a row
+    averages the Sk keys of the plain version's one Sk-wide key tile, so the
+    kernel's 64-wide tile must give its padded keys no weight; a query tile
+    the plain version skips gives zeros in both."""
+    B, KV, Sq, Sk, D = 1, 2, 100, 40, 32
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=cuda)
+               for shape in ((B, KV, G, Sq, D), (B, KV, Sk, D),
+                             (B, KV, Sk, D)))
+    out = fa.flash_attention_bkgsd(q, k, v, causal=causal, window=window)
+    bq, bk = fa.kernel_tiles(G, Sq, Sk, torch.float32)
+    plain = fa.flash_attention_bkgsd_plain(q, k, v, causal=causal,
+                                           window=window, blk_q=bq, blk_k=bk)
+    torch.cuda.synchronize()
+    empty = [i for i in range(Sq) if i >= Sk - 1 + window]
+    mean = v.mean(dim=2)[:, :, None]                  # (B, KV, 1, D)
+    averaged = [i for i in empty if float(
+        (plain[:, :, :, i] - mean).abs().max()) <= 2e-5]
+    assert averaged and len(averaged) < len(empty)    # both kinds of row
+    assert float((out - plain).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_other_tiles(cuda):
     q = torch.zeros(1, 64, 4, 16, device=cuda)
     k = torch.zeros(1, 64, 2, 16, device=cuda)

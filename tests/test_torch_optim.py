@@ -407,3 +407,69 @@ def test_ring_apply_whatif_kernel_bitwise_on_card(opt, dtype, rows, cuda):
     assert replay_ring.launches["ring_apply_whatif"] == 1
     for x, y in zip(kern, plain):
         assert (x is None and y is None) or torch.equal(x, y)
+
+
+# (K, distinct pulled rows, prev ∈ ts): the register variant at 1, 2 and
+# its limit of rows, the per-slot variant one row above it, prev among the
+# pulled rows, and hardsync's K = 1 (prev = slot = every tsⱼ)
+WHATIF_CASES = [(3, 1, False), (3, 2, False),
+                (replay_ring.WHATIF_ROWS + 2, replay_ring.WHATIF_ROWS, False),
+                (replay_ring.WHATIF_ROWS + 3, replay_ring.WHATIF_ROWS + 1,
+                 False),
+                (4, 2, True), (1, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("long_runs", [False, True])
+@pytest.mark.parametrize("width", [D, D + 3])
+@pytest.mark.parametrize("K,rows,prev_in_ts", WHATIF_CASES)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("opt", OPTS)
+def test_ring_apply_whatif_distinct_rows_bitwise_on_card(
+        opt, dtype, K, rows, prev_in_ts, width, long_runs, cuda):
+    """64 slots pulling ``rows`` distinct rows in runs of 1 to 3 equal
+    slots (the kernel picks each slot's row by selects) or in max(rows, 4)
+    runs of 16 or so (by a branch per run), the slot row never among them
+    unless K = 1.  ``width`` D is a multiple of 8 (the kernel's 8-wide
+    path) or ragged (1-wide)."""
+    rng = np.random.default_rng(4 + rows)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    c = 64
+
+    def dev(x):
+        return torch.tensor(np.asarray(x, np.float32), device=cuda)
+    ring = dev(rng.normal(size=(K, width))).to(tdt)
+    s = None if opt == "sgd" else dev(np.abs(rng.normal(size=width)))
+    res = dev(rng.normal(size=width) * 1e-3) if dtype == "bf16" else None
+    a, wstar = dev(rng.uniform(0.5, 1.5, width)), dev(rng.normal(size=width))
+    coef = dev(rng.uniform(0.5, 1.5, c) / c)
+    lrs = dev(rng.uniform(0.01, 0.1, c))
+    slot = K - 1
+    pool = [r for r in range(K) if r != slot] or [0]
+    pulled = list(rng.permutation(pool)[:rows])
+    rest = [r for r in pool if r not in pulled]
+    prev = int(pulled[0] if prev_in_ts else rest[0] if rest else slot)
+    ts = []                  # a run of each pulled row, then random runs
+    if long_runs:
+        n = max(rows, 4)
+        for k in range(n):
+            ts += [pulled[k % rows]] * -(-c // n)
+    else:
+        for row in pulled:
+            ts += [row] * int(rng.integers(1, 4))
+        while len(ts) < c:
+            ts += [pulled[rng.integers(rows)]] * int(rng.integers(1, 4))
+    ts = [int(r) for r in ts[:c]]
+    assert len(set(ts)) == rows and (prev in ts) == prev_in_ts
+    idx = torch.tensor([prev, slot, *ts], dtype=torch.int32, device=cuda)
+    spec = TSpec(opt)
+    clone = (lambda x: None if x is None else x.clone())
+    plain = t_whatif(spec, ring.clone(), clone(s), clone(res), a, wstar,
+                     idx[2:], coef, lrs, idx[0], idx[1])
+    replay_ring.reset_launches()
+    kern = replay_ring.ring_apply_whatif(ring, s, res, a, wstar, coef, lrs,
+                                         idx, spec=spec)
+    torch.cuda.synchronize()
+    assert replay_ring.launches["ring_apply_whatif"] == 1
+    for x, y in zip(kern, plain):
+        assert (x is None and y is None) or torch.equal(x, y)

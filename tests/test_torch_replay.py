@@ -192,6 +192,30 @@ def test_whatif_hardsync_matches_reference(dtype, R):
     assert ref.staleness == t_run(ts, device="cpu").staleness
 
 
+@pytest.mark.parametrize("problem,args,run_kw", [
+    ("mlp_teacher", {"hidden": HIDDEN}, {}),
+    ("quadratic_whatif", {"dim": 64}, {"optimizer": "momentum",
+                                       "ring_dtype": "bf16"})])
+def test_spec_hash_names_the_backend(problem, args, run_kw, R):
+    """The port's content address of a spec differs from the reference's
+    for the same spec (its payload names the backend), so neither
+    package's results are taken for the other's; it is stable across
+    calls, across dict order and across a JSON round trip of the echo."""
+    import json
+    from repro.experiments.spec_hash import spec_hash as r_hash
+    from repro_torch.experiments import spec_hash as t_hash
+    from repro_torch.experiments.spec_hash import spec_hash_from_echo
+    ref, port = _specs(problem, args, R=R, **run_kw)
+    h = t_hash(port)
+    assert h != r_hash(ref)
+    assert h == t_hash(port) == t_hash(_specs(problem, args, R=None,
+                                               **run_kw)[1])
+    echo = json.loads(json.dumps(port.echo()))
+    assert spec_hash_from_echo(dict(reversed(list(echo.items())))) == h
+    other = _specs(problem, args, R=None, **{**run_kw, "base_lr": 0.07})[1]
+    assert t_hash(other) != h
+
+
 def test_fused_and_kernel_wrappers_agree_on_cpu():
     """ring_impl='fused' (plain versions called directly) and the default
     'auto' (the kernel wrappers, which run the plain versions on CPU

@@ -112,6 +112,78 @@ def scan_inputs(seed, Bt, S, H, P, N):
 # ---------------------------------------------------------------------------
 # the kernel's plain version
 # ---------------------------------------------------------------------------
+def staged_scan(x, a, Bm, Cm, chunk, tile=64):
+    """The CUDA kernel's staged algorithm (``csrc/ssm_scan.cu``) in plain
+    PyTorch fp32, tile for tile: 1. C·Bᵀ per (b, chunk) over the 64 × 64
+    tiles J ≤ I only, j-major (the other tiles stay NaN, so reading one
+    shows); 2. the cumulative sums and each chunk's state contribution
+    dS_c = Bᵀ diag(exp(cum_Q − cum)) x; 3. the pass S_c = exp(cum_Q) S_{c−1}
+    + dS_c, keeping the state entering each chunk; 4. y per 64-row block,
+    the inter-chunk term plus the tiles J ≤ I with the decay masked before
+    the exponential.  Returns (y, final state)."""
+    F = torch.nn.functional
+    Bt, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xs = F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(Bt, nc, Q, H, P)
+    As = F.pad(a, (0, 0, 0, pad)).reshape(Bt, nc, Q, H)
+    Bs = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(Bt, nc, Q, N)
+    Cs = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(Bt, nc, Q, N)
+    nb = -(-Q // tile)
+    blk = [slice(k * tile, min(Q, (k + 1) * tile)) for k in range(nb)]
+    cb = torch.full((Bt, nc, Q, Q), float("nan"))                 # step 1
+    for I in range(nb):
+        for J in range(I + 1):
+            cb[:, :, blk[J], blk[I]] = (Bs[:, :, blk[J]]
+                                        @ Cs[:, :, blk[I]].transpose(-1, -2))
+    cum = torch.cumsum(As, dim=2)                                 # step 2
+    total = cum[:, :, -1]                                         # (Bt,nc,H)
+    w = torch.exp(total[:, :, None] - cum)
+    dS = torch.einsum("bcjn,bcjhp->bchnp", Bs, w[..., None] * xs)
+    st = torch.empty_like(dS)                                     # step 3
+    s = torch.zeros(Bt, H, N, P)
+    for c in range(nc):
+        st[:, c] = s
+        s = torch.exp(total[:, c])[..., None, None] * s + dS[:, c]
+    y = torch.zeros(Bt, nc, Q, H, P)                              # step 4
+    rows = torch.arange(Q)
+    for I in range(nb):
+        i = blk[I]
+        yI = torch.exp(cum[:, :, i])[..., None] * torch.einsum(
+            "bcin,bchnp->bcihp", Cs[:, :, i], st)
+        for J in range(I + 1):
+            j = blk[J]
+            live = (rows[j][:, None] <= rows[i][None, :])[..., None]
+            d = torch.where(live, cum[:, :, i][:, :, None]
+                            - cum[:, :, j][:, :, :, None], -torch.inf)
+            A = torch.where(live, cb[:, :, j, i][..., None] * torch.exp(d),
+                            0.0)                                  # (b,c,j,i,h)
+            yI = yI + torch.einsum("bcjih,bcjhp->bcihp", A, xs[:, :, j])
+        y[:, :, i] = yI
+    return y.reshape(Bt, nc * Q, H, P)[:, :S], s
+
+
+@pytest.mark.parametrize("S,N,P,chunk", [(100, 16, 8, 32), (333, 8, 8, 256),
+                                         (300, 16, 4, 128),
+                                         (200, 8, 8, 64)])
+def test_staged_scan_matches_plain_and_pallas_interpret(S, N, P, chunk, J):
+    """The kernel's decomposition on the CPU, before any card: against
+    ``ssm_scan_plain`` and the reference's Pallas kernel in interpret mode,
+    within this file's CPU tolerance, at ragged S and 1 to 4 row blocks
+    per chunk."""
+    x, a, Bm, Cm = scan_inputs(S + chunk, 2, S, 3, P, N)
+    y, s = staged_scan(*(_t(t) for t in (x, a, Bm, Cm)), chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    py, ps = sk.ssm_scan_plain(*(_t(t) for t in (x, a, Bm, Cm)), chunk=chunk)
+    want_y, want_s = J.sk.ssm_scan(*(_j(t) for t in (x, a, Bm, Cm)),
+                                   chunk=chunk, interpret=True)
+    span = 2.0 ** -20 * decay_span(a, chunk)
+    for got, want in ((y, py), (s, ps), (y, want_y), (s, want_s)):
+        _near(got, want, 2e-5 + span)
+
+
 @pytest.mark.parametrize("S,N,chunk", [(32, 8, 16), (100, 16, 32),
                                        (128, 16, 64), (100, 8, 256)])
 def test_ssm_scan_plain_matches_pallas_interpret_and_oracle(S, N, chunk, J):
@@ -315,6 +387,52 @@ def test_ssm_scan_kernel_matches_plain_on_card(H, P, N, chunk, S, bc, cuda):
                                chunk=chunk)
     torch.cuda.synchronize()
     span = 2.0 ** -20 * decay_span(a, chunk)
+    _near(y.cpu(), py.cpu(), 1e-5 + span)
+    _near(s.cpu(), ps.cpu(), 1e-5 + span)
+
+
+# every (N, P) the kernel is built for, the chunks 64 / 128 / 256 and B / C
+# in either dtype, at a ragged S and B 2
+_CARD_CELLS = [(N, P, (64, 128, 256)[k % 3], ("bfloat16", "float32")[k % 2])
+               for k, (N, P) in enumerate((N, P) for N in sk.STATE_DIMS
+                                          for P in sk.HEAD_DIMS)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,P,chunk,bc", _CARD_CELLS)
+def test_ssm_scan_kernel_each_state_and_head_dim_on_card(N, P, chunk, bc,
+                                                         cuda):
+    """The staged kernel at every N and P it takes, S = 333 (a ragged last
+    chunk and a ragged last 64-row block), B 2; the same tolerance as
+    above."""
+    S, H = 333, 3
+    x, a, Bm, Cm = scan_inputs(N + P + chunk, 2, S, H, P, N)
+    bcm = _t(np.concatenate([Bm, Cm], -1), bc).to(cuda)
+    xs, as_ = _t(x).to(cuda), _t(a).to(cuda)
+    sk.reset_launches()
+    y, s = sk.ssm_scan(xs, as_, bcm[..., :N], bcm[..., N:], chunk=chunk)
+    assert sk.launches["ssm_scan"] == 1
+    py, ps = sk.ssm_scan_plain(xs, as_, bcm[..., :N], bcm[..., N:],
+                               chunk=chunk)
+    torch.cuda.synchronize()
+    span = 2.0 ** -20 * decay_span(a, chunk)
+    _near(y.cpu(), py.cpu(), 1e-5 + span)
+    _near(s.cpu(), ps.cpu(), 1e-5 + span)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_reads_strided_unaligned_x_on_card(cuda):
+    """x as a view whose rows are not 16-byte aligned: the wrapper copies
+    it for the kernel's vector loads; the result is the plain version's."""
+    x, a, Bm, Cm = scan_inputs(7, 2, 200, 4, 32, 16)
+    wide = torch.zeros(2, 200, 4, 33, device=cuda)
+    wide[..., 1:] = _t(x).to(cuda)
+    xs = wide[..., 1:]
+    args = (_t(a).to(cuda), _t(Bm).to(cuda), _t(Cm).to(cuda))
+    y, s = sk.ssm_scan(xs, *args, chunk=64)
+    py, ps = sk.ssm_scan_plain(xs, *args, chunk=64)
+    torch.cuda.synchronize()
+    span = 2.0 ** -20 * decay_span(a, 64)
     _near(y.cpu(), py.cpu(), 1e-5 + span)
     _near(s.cpu(), ps.cpu(), 1e-5 + span)
 
