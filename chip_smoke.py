@@ -14,8 +14,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    seconds and ptxas lines with spills; for ``flash_attention_sm90`` the
    counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
    its SASS (``cuobjdump -sass``), each required to be nonzero, and ptxas's
-   wgmma warnings; for the redesigned ``ring_apply_whatif`` kernel and the
-   four ``ssm_scan`` kernels, their registers and spill bytes (ptxas).
+   wgmma warnings; for the redesigned ``ring_apply_whatif`` kernel, the
+   four ``ssm_scan`` kernels and the three ``wkv6`` kernels, their
+   registers and spill bytes (ptxas; a ``wkv6`` kernel that spills fails).
 3. Kernel vs plain version on the card: ``ring_apply`` over optimizer ×
    mode × ring dtype and ``ring_apply_whatif`` over optimizer × ring dtype,
    at D = 2²² + 37 (a ragged edge), c = 32, K ∈ {3, 1} (K = 1: hardsync,
@@ -41,7 +42,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``wkv6`` at rwkv6_7b's head (H 64, P 64, chunk 32) with r / k / v in
    bf16 and fp32, at the model's decay and at one whose exp above the
    diagonal overflows; B 2, a ragged S = 1 000 (and ``ssm_scan`` at every
-   N and P it takes, S = 333, chunks 64 / 128 / 256); the output and the final
+   N and P it takes, S = 333, chunks 64 / 128 / 256; ``wkv6`` also at
+   S = 2 000, across three edges of its groups of chunks, with the strong
+   decay in odd chunks, and with chunk decay spans of 20 to 60.1, across
+   the factored form's limit of 60, so its pair term takes both of its
+   forms in one call); the output and the final
    state each held within (1e-5 + 2⁻²⁰ · span) of the plain version's
    largest magnitude, span the largest cumulative log decay of a chunk
    (fp32 sums in another order with FMAs, plus eight ulps of the
@@ -85,8 +90,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    S 8 192, bf16 operands) beside their plain versions and bounds (no
    PyTorch call computes either: no library time); ``ring_apply_whatif``
    also with the older ring row pulled (2 distinct rows) in 4 runs, as the
-   lane's events come, and in short runs; ``ssm_scan``'s time per call
-   split by its four kernels (``torch.profiler``).  Each
+   lane's events come, and in short runs; ``ssm_scan``'s and ``wkv6``'s
+   time per call split by their kernels (``torch.profiler``), ``wkv6``'s
+   scratch, the operations its kernels do beside the bound's count, and
+   its time also with every chunk's pair term in the direct form (the
+   strong decay) and with half of them (the mixed decay).  Each
    time with its achieved rates and its share of the bound.
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
@@ -121,6 +129,7 @@ counted per kernel (``flash_sm90``, ``flash_simt``).
 """
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -1032,6 +1041,7 @@ def time_flash(dev, S, H=12, KV=2, D=128):
 # ---------------------------------------------------------------------------
 SSM_HEAD = dict(H=112, P=64, N=64, chunk=256)   # zamba2_7b's mamba layer
 WKV_HEAD = dict(H=64, P=64, chunk=32)           # rwkv6_7b's rwkv layer
+WKV_KERNELS = ("wkv_group_kernel", "wkv_pass_kernel", "wkv_out_kernel")
 
 
 def decay_span(a, chunk) -> float:
@@ -1089,6 +1099,71 @@ def wkv_inputs(B, S, H, P, dtype, strong, seed, dev):
     r, k, v = (randn(B, S, H, P).mul(0.5).to(dtype) for _ in range(3))
     w = -torch.exp(randn(B, S, H, P) * 0.5 + (2.5 if strong else -6.0))
     return r, k, v, w, randn(H, P) * 0.1
+
+
+# decay spans of a chunk around the factored pair term's limit
+# (wkv6.FACTOR_SPAN, 60): well inside it, just under and just over
+WKV_EDGE_SPANS = (20.0, 30.0, 40.0, 50.0, 58.0, 59.9, 60.1)
+
+
+def chunk_sums(w, chunk):
+    """w (B, S, H, P) in fp64 as (B, nc, Q, H, P) chunks, zero past S."""
+    import torch
+    Bt, S, H, P = w.shape
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    x = torch.nn.functional.pad(w.double(), (0, 0, 0, 0, 0, nc * Q - S))
+    return x.reshape(Bt, nc, Q, H, P)
+
+
+def pair_forms(w, chunk, what):
+    """Log how many (b, h, chunk) blocks of the log decay ``w`` take the
+    kernel's factored pair term (the chunk's largest decay span over its
+    channels at most ``wkv6.FACTOR_SPAN``) and how many the direct one;
+    require both."""
+    from repro_torch.kernels import wkv6 as wk
+    span = -chunk_sums(w, chunk).sum(2).amin(-1)   # (B, nc, H)
+    n_fac = int((span <= wk.FACTOR_SPAN).sum())
+    log(f"  {what}: {n_fac} (b, h, chunk) blocks take the factored pair "
+        f"term, {span.numel() - n_fac} the direct one")
+    if not 0 < n_fac < span.numel():
+        raise AssertionError(f"the {what} does not take both forms")
+
+
+def wkv_mixed(ops, chunk, seed):
+    """``ops`` (``wkv_inputs`` at the model's decay) with the strong decay
+    in every odd chunk, so the kernel's pair term takes both forms in one
+    call."""
+    import torch
+    r, k, v, w, u = ops
+    Bt, S, H, P = w.shape
+    strong = wkv_inputs(Bt, S, H, P, torch.float32, True, seed, w.device)[3]
+    odd = (torch.arange(S, device=w.device) // chunk) % 2 == 1
+    w = torch.where(odd[None, :, None, None], strong, w)
+    pair_forms(w, chunk, "mixed decay")
+    return r, k, v, w, u
+
+
+def wkv_edge(ops, chunk):
+    """``ops`` with w scaled per (b, chunk, h) so that the chunk's decay
+    span is one of ``WKV_EDGE_SPANS``, in turn along b + chunk + h: the
+    factored pair term's factors reach e^±29, and the blocks just over the
+    limit take the direct form in the same call."""
+    import torch
+    r, k, v, w, u = ops
+    Bt, S, H, P = w.shape
+    x = chunk_sums(w, chunk)
+    nc = x.shape[1]
+    span = -x.sum(2).amin(-1)                        # (B, nc, H)
+    ar = functools.partial(torch.arange, device=w.device)
+    turn = (ar(Bt)[:, None, None] + ar(nc)[None, :, None]
+            + ar(H)[None, None, :]) % len(WKV_EDGE_SPANS)
+    want = torch.tensor(WKV_EDGE_SPANS, dtype=torch.float64,
+                        device=w.device)[turn]
+    x = x * (want / span)[:, :, None, :, None]
+    w = x.reshape(Bt, -1, H, P)[:, :S].float()
+    pair_forms(w, chunk, "edge decay")
+    return r, k, v, w, u
 
 
 def held_pair(kern, plain, ops, chunk, a, what):
@@ -1150,6 +1225,16 @@ def phase_scans_vs_plain(dev) -> dict:
                     f"{'strong' if strong else 'model'} decay")
             err, _ = wkv_pair(ops, h["chunk"], what)
             worst["wkv6"] = max(worst["wkv6"], err)
+    # groups of chunks: S = 2 000 crosses three group edges and ends in a
+    # ragged group; odd chunks strong, even ones the model's decay; then
+    # chunk spans of 20 to 60.1, across the factored form's limit
+    base = wkv_inputs(2, 2000, h["H"], h["P"], torch.bfloat16, False, 17, dev)
+    for name, ops in (("mixed", wkv_mixed(base, h["chunk"], 18)),
+                      ("edge", wkv_edge(base, h["chunk"]))):
+        err, _ = wkv_pair(ops, h["chunk"], f"wkv6 B=2 S=2000 H={h['H']} "
+                          f"P={h['P']} chunk={h['chunk']} r/k/v bfloat16 "
+                          f"{name} decay")
+        worst["wkv6"] = max(worst["wkv6"], err)
     return worst
 
 
@@ -1190,6 +1275,26 @@ def wkv_cost(B, S, H, P, Q, rkv_bytes):
     nbytes = (3 * rkv_bytes + 8) * B * S * H * P + 4 * H * P \
         + 4 * B * H * P * P
     return nbytes, B * H * ops
+
+
+def wkv_kernel_ops(B, S, H, P, Q, G):
+    """fp32 operations the staged ``wkv6`` kernels do at the model's decay
+    (the factored pair term), beside ``wkv_cost``'s count of the chunked
+    closed form, which stays the bound: per (b, h, chunk of q rows) the
+    group kernel's cumulative sum, k·exp(cum_Q − cum) and state update
+    (qP + 3qP + 2qP² + P²); the out kernel's cumulative sum and operands
+    (qP + 7qP), bonus 3qP, (r∘exp(cum⁻))·S 2qP², the pair term as a
+    q × q × P product 2q²P, A·v 2q²P and, but for a group's last chunk,
+    the state update again (2qP² + P²); the pass over the groups 2P² a
+    group."""
+    rows = chunk_rows(S, Q)
+    ops = 0
+    for c, q in enumerate(rows):
+        ops += 4 * q * P + 2 * q * P * P + P * P
+        ops += 11 * q * P + 2 * q * P * P + 4 * q * q * P
+        if (c + 1) % G and c + 1 < len(rows):
+            ops += 2 * q * P * P + P * P
+    return B * H * (ops + 2 * P * P * -(-len(rows) // G))
 
 
 def scan_bound(nbytes, nops):
@@ -1252,15 +1357,46 @@ def time_scan(name, ops, chunk, cost, dev):
         f"{nops / (ms * 1e-3) / 1e12:.2f} TFLOP/s and "
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved, "
         f"{bms / ms:.3f} of the bound)")
-    if name == "ssm_scan":   # four kernels per call: where its time goes
-        split = kernel_split(lambda: kern(*ops, chunk=chunk))
-        log("    per call, by kernel (torch.profiler): " + "; ".join(
-            f"{short_name(k)} {v:.4f} ms"
-            for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    # several kernels per call: where its time goes
+    split = kernel_split(lambda: kern(*ops, chunk=chunk))
+    log("    per call, by kernel (torch.profiler): " + "; ".join(
+        f"{short_name(k)} {v:.4f} ms"
+        for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    if name == "wkv6":
+        wkv_details(ops, chunk, ms, dev)
     del ops
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": err, "library_ms": None}
+
+
+def wkv_details(ops, chunk, ms, dev):
+    """Phase 7 for ``wkv6`` beyond its time at the model's decay: the
+    scratch, the kernels' own operation count beside the bound's, and the
+    time at the same shape with every chunk's pair term in the direct form
+    (the strong decay) and with half of them (the mixed decay), each held
+    first and split by kernel."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
+    Bt, S, H, P = ops[0].shape
+    Q = min(chunk, S)
+    scratch = sum(4 * math.prod(sh) for sh in wk.scratch_shapes(Bt, S, H, P,
+                                                                  Q))
+    kops = wkv_kernel_ops(Bt, S, H, P, Q, wk.GROUP)
+    log(f"    scratch {scratch / 1e6:.2f} MB (group states and decays, G = "
+        f"{wk.GROUP}); the kernels' own fp32 ops {kops / 1e9:.3f} G "
+        f"({kops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)")
+    strong = wkv_inputs(Bt, S, H, P, ops[0].dtype, True, 27, dev)
+    for name, o in (("strong", strong), ("mixed", wkv_mixed(ops, chunk, 28))):
+        wkv_pair(o, chunk, f"wkv6 at the prefill shape, {name} decay")
+        t = cuda_ms(lambda: wk.wkv6(*o, chunk=chunk), 5)
+        split = kernel_split(lambda: wk.wkv6(*o, chunk=chunk))
+        log(f"    {name} decay: {t:.4f} ms ({t / ms:.2f}x the model "
+            f"decay's); by kernel: " + "; ".join(
+                f"{short_name(k)} {v:.4f} ms"
+                for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    del strong
+    torch.cuda.empty_cache()
 
 
 def time_scans(dev):
@@ -1519,6 +1655,10 @@ def main() -> int:
     ptxas_by_kernel(libs["replay_ring"], ("ring_apply_whatif_kernel",))
     ptxas_by_kernel(libs["ssm_scan"], ("ssd_cb_kernel", "ssd_state_kernel",
                                        "ssd_pass_kernel", "ssd_out_kernel"))
+    wkv_regs = ptxas_by_kernel(libs["wkv6"], WKV_KERNELS)
+    spilled = {k: v for k, v in wkv_regs.items() if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"wkv6 kernels spill (ptxas): {spilled}")
 
     log("phase 3: kernel vs plain version on the card (tolerance 0; "
         "flash_attention: 2e-5 fp32, 2^-8 max|v| + one ulp + 2e-5 bf16; "

@@ -174,6 +174,15 @@ def vec8(D: int, *tensors) -> int:
                                   for t in tensors if t is not None))
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when every row of its last dim starts on a 16-byte boundary
+    (the scan kernels read rows 16 bytes at a time), else a fresh
+    contiguous copy."""
+    ok = t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
 def raise_on(lib: ctypes.CDLL, source: str, err: int, kernel: str) -> None:
     """Raise when a launch returned a nonzero ``cudaError_t``."""
     if err:

@@ -121,19 +121,6 @@ def scratch_shapes(Bt: int, S: int, H: int, P: int, N: int,
     return (Bt, nc, Q, -(-Q // 4) * 4), (Bt, H, nc, Q), (Bt, nc, H, N, P)
 
 
-def _rows_aligned(t: torch.Tensor) -> bool:
-    """Every row of ``t``'s last dim starts on a 16-byte boundary (the
-    kernel reads them 16 bytes at a time)."""
-    return t.data_ptr() % 16 == 0 and all(
-        st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a fresh contiguous copy when its rows are not aligned."""
-    return t if _rows_aligned(t) else t.clone(
-        memory_format=torch.contiguous_format)
-
-
 def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -157,7 +144,7 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                          f"P in {HEAD_DIMS} and N in {STATE_DIMS}")
     if x.stride(-1) != 1 or Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
         raise ValueError("x, Bm and Cm must have a contiguous last dim")
-    x, Bm, Cm = _aligned(x), _aligned(Bm), _aligned(Cm)
+    x, Bm, Cm = (build.aligned16(t) for t in (x, Bm, Cm))
     y = torch.empty((Bt, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=dev)
     cb, cum, st = (torch.empty(shape, dtype=torch.float32, device=dev)

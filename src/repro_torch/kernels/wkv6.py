@@ -1,5 +1,6 @@
 """RWKV6 WKV recurrence (chunked, data-dependent per-channel decay): one
-kernel launch per rwkv layer of a prefill (CUDA, Hopper).
+call per rwkv layer of a prefill, three kernels counted as one launch
+(CUDA, Hopper).
 
 Counterpart of ``repro/kernels/wkv6.py``, whose Pallas TPU kernel
 (``wkv6``: ``_wkv_kernel``, grid (batch, heads, chunks) with the (P, P)
@@ -24,7 +25,9 @@ entering the chunk)::
 Every exponent is ≤ 0 where it is used.  For j ≥ i the pair term's
 argument is ≥ 0 and overflows at a strong decay: the TPU kernel computes it
 and selects zero afterwards; the plain version masks to −inf before the
-exponential and the kernel skips those pairs.
+exponential.  The kernel's direct form skips those pairs; its factored form
+(a chunk whose decay span is at most ``FACTOR_SPAN``) multiplies factors
+within e^±30, so every product is finite, and selects those pairs away.
 
 Operands: r/k/v (B, S, H, P) fp32 or bf16 (one dtype), w (B, S, H, P) fp32
 (the log decay), u (H, P) fp32, each with a contiguous last dim.  Returns
@@ -35,10 +38,22 @@ reference's ``ops.wkv6`` drops an ``init_state`` silently):
 plain version zero-pads (w = 0 there: exp(0) = 1, a harmless tail) and
 slices back; the kernel reads zeros past S, which is the same.
 
-``wkv6`` checks shapes, dtypes and strides, then launches the kernel on
+``wkv6`` checks shapes, dtypes and strides, then launches the kernels on
 CUDA tensors — or, for CPU tensors, runs :func:`wkv6_plain`, which the
-kernel is held against on the card.  Nothing falls back: a CUDA call
-launches or raises.  ``launches["wkv6"]`` counts kernel launches.
+kernels are held against on the card.  Nothing falls back: a CUDA call
+launches or raises.
+
+On the card one call is three launches on the current stream, the staged
+algorithm of the source's header: per (b, h, group of ``GROUP`` chunks)
+the group's own state contribution and decay; a pass per (b, h) for the
+state entering each group; per (b, h, group) the group's chunks from that
+state, writing out.  A chunk's pair term takes a factored form (a
+Q × Q × P product) where its decay span is at most ``FACTOR_SPAN``, the
+direct form otherwise.  The wrapper allocates the scratch with
+``torch.empty`` (:func:`scratch_shapes`): 16.8 MB of group states and
+0.26 MB of group decays at rwkv6_7b's layer (B 1, S 8 192, H 64, P 64,
+chunk 32).  ``launches["wkv6"]`` counts one per call, whatever the number
+of kernels it launched.
 """
 
 from __future__ import annotations
@@ -52,8 +67,10 @@ import torch
 from repro_torch.kernels import build
 
 DEFAULT_CHUNK = 32
-MAX_CHUNK = 32                # csrc/wkv6.cu: a chunk's rows are one warp
+MAX_CHUNK = 32                # csrc/wkv6.cu: at most 32 rows a chunk
 HEAD_DIMS = (32, 64, 128)     # P the kernel is built for
+GROUP = 16                    # csrc/wkv6.cu: chunks a group
+FACTOR_SPAN = 60.0            # csrc/wkv6.cu: the factored pair term's limit
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset_launches()
@@ -66,17 +83,31 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built kernel with its C signature declared; its chunk limit
-    must be the one this module assumes."""
+    """The built kernels with their C signature declared; the chunk limit,
+    the group size and the factored form's span limit must be the ones
+    this module assumes."""
     lib = build.load("wkv6")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.wkv6_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.wkv6_fwd.restype = i
     lib.wkv6_max_chunk.restype = i
-    if lib.wkv6_max_chunk() != MAX_CHUNK:
-        raise RuntimeError(f"wkv6_max_chunk() = {lib.wkv6_max_chunk()}, "
-                           f"expected {MAX_CHUNK}")
+    lib.wkv6_group.restype = i
+    lib.wkv6_factor_span.restype = ctypes.c_float
+    got = (lib.wkv6_max_chunk(), lib.wkv6_group(), lib.wkv6_factor_span())
+    want = (MAX_CHUNK, GROUP, FACTOR_SPAN)
+    if got != want:
+        raise RuntimeError(f"wkv6 library: chunk limit, group size and "
+                           f"factor span {got}, expected {want}")
     return lib
+
+
+def scratch_shapes(Bt: int, S: int, H: int, P: int,
+                   Q: int) -> Tuple[Tuple[int, ...], ...]:
+    """The kernels' fp32 scratch: the group states (B, ng, H, P, P) and the
+    group decays (B, ng, H, P), ng = ⌈⌈S / Q⌉ / GROUP⌉."""
+    nc = -(-S // Q)
+    ng = -(-nc // GROUP)
+    return (Bt, ng, H, P, P), (Bt, ng, H, P)
 
 
 def _shapes(r, k, v, w, u) -> Tuple[int, int, int, int]:
@@ -131,15 +162,18 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{name} must have a contiguous last dim")
     if not u.is_contiguous():
         raise ValueError("u must be contiguous")
+    r, k, v, w = (build.aligned16(t) for t in (r, k, v, w))
     out = torch.empty((Bt, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((Bt, H, P, P), dtype=torch.float32, device=dev)
+    st, dg = (torch.empty(shape, dtype=torch.float32, device=dev)
+              for shape in scratch_shapes(Bt, S, H, P, Q))
     strides = tuple(s for t in (r, k, v, w) for s in t.stride()[:3])
     lib = _library()
     err = lib.wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), out.data_ptr(), state.data_ptr(),
-        (ctypes.c_longlong * 12)(*strides), Bt, S, H, P, Q, _DTYPES[r.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        u.data_ptr(), out.data_ptr(), state.data_ptr(), st.data_ptr(),
+        dg.data_ptr(), (ctypes.c_longlong * 12)(*strides), Bt, S, H, P, Q,
+        _DTYPES[r.dtype], torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(lib, "wkv6", err, "wkv6")
     launches["wkv6"] += 1
     return out, state

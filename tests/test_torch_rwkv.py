@@ -8,6 +8,10 @@
   decay strong enough that exp(cum⁻_i − cum_j) for j ≥ i overflows;
   ``wkv_chunked`` from a nonzero state; the wrapper's refusal of an
   ``init_state``.
+* :func:`staged_wkv`, the CUDA kernels' decomposition in plain PyTorch
+  (groups of chunks, the pass over them, the pair term factored or direct
+  by each chunk's decay span), against the plain version and the Pallas
+  kernel in interpret mode; the kernels' scratch shapes.
 * The time mix (``use_pallas`` True and False, and the unrolled chunked
   path), the channel mix, both decode functions (the cache written in
   place) and ``sqrelu_ffn`` on weights carried from the reference; the
@@ -134,6 +138,148 @@ def test_wkv6_plain_matches_pallas_interpret_and_recurrence(S, P, chunk,
     jrec_y, jrec_s = J.ref.wkv6_ref(*(_j(t) for t in (r, k, v, w, u)))
     _near(rec_y, jrec_y, 2e-5)
     _near(rec_s, jrec_s, 2e-5)
+
+
+def mixed_inputs(seed, Bt, S, H, P, chunk):
+    """``wkv_inputs`` whose odd chunks carry the strong decay and even
+    chunks the model's, so one call's chunks fall on both sides of the
+    kernel's factored-form limit (``wkv6.FACTOR_SPAN``)."""
+    r, k, v, w, u = wkv_inputs(seed, Bt, S, H, P, strong=False)
+    ws = wkv_inputs(seed + 1, Bt, S, H, P, strong=True)[3]
+    odd = (np.arange(S) // min(chunk, S)) % 2 == 1
+    return r, k, v, np.where(odd[None, :, None, None], ws, w), u
+
+
+# decay spans of a chunk around the kernel's factored-form limit (60):
+# well inside it, just under and just over
+EDGE_SPANS = (20.0, 30.0, 40.0, 50.0, 58.0, 59.9, 60.1)
+
+
+def edge_inputs(seed, Bt, S, H, P, chunk):
+    """``wkv_inputs`` at the mild decay with w scaled per (b, chunk, h) so
+    that the chunk's decay span (its largest |cumulative log decay| over
+    the channels) is one of ``EDGE_SPANS``, in turn along b + chunk + h:
+    the factored pair term's factors reach e^±29, and the chunks just over
+    ``wkv6.FACTOR_SPAN`` take the direct form in the same call."""
+    r, k, v, w, u = wkv_inputs(seed, Bt, S, H, P, strong=False)
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    x = np.pad(w.astype(np.float64), [(0, 0), (0, nc * Q - S), (0, 0),
+                                       (0, 0)]).reshape(Bt, nc, Q, H, P)
+    span = -x.sum(axis=2).min(axis=-1)                       # (B, nc, H)
+    turn = (np.arange(Bt)[:, None, None] + np.arange(nc)[None, :, None]
+            + np.arange(H)[None, None, :]) % len(EDGE_SPANS)
+    x = x * (np.asarray(EDGE_SPANS)[turn] / span)[:, :, None, :, None]
+    return r, k, v, x.reshape(Bt, nc * Q, H, P)[:, :S].astype(np.float32), u
+
+
+def staged_wkv(r, k, v, w, u, chunk, group):
+    """The CUDA kernels' staged algorithm (``csrc/wkv6.cu``) in plain
+    PyTorch fp32: 1. per group of ``group`` chunks, its state contribution
+    from zero and its decay, chained chunk by chunk; 2. the pass over the
+    groups, keeping the state entering each; 3. each group's chunks from
+    its entering state, the pair term factored (exp(cx − m) · exp(m − cum),
+    m the midpoint of cum's range) where the (b, h) chunk's span is at most
+    ``FACTOR_SPAN``, else formed directly, masked before the exponential.
+    Returns (out, final state, (factored, direct) chunk counts)."""
+    F = torch.nn.functional
+    Bt, S, H, P = r.shape
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    ng = -(-nc // group)
+
+    def blocks(t):          # → (B, H, nc, Q, P), zero past S
+        t = F.pad(t.float(), (0, 0, 0, 0, 0, nc * Q - S))
+        return t.reshape(Bt, nc, Q, H, P).permute(0, 3, 1, 2, 4)
+
+    rb, kb, vb, wb = (blocks(t) for t in (r, k, v, w))
+    cum = torch.cumsum(wb, dim=-2)
+    last = cum[..., -1, :]                                     # (B,H,nc,P)
+    kw = kb * torch.exp(last[..., None, :] - cum)
+    dS = torch.zeros(Bt, H, ng, P, P)                          # stage 1
+    dg = torch.ones(Bt, H, ng, P)
+    for c in range(nc):
+        g = c // group
+        dS[:, :, g] = (torch.exp(last[:, :, c])[..., None] * dS[:, :, g]
+                       + kw[:, :, c].transpose(-1, -2) @ vb[:, :, c])
+        dg[:, :, g] = dg[:, :, g] * torch.exp(last[:, :, c])
+    enter = torch.empty_like(dS)                               # stage 2
+    s = torch.zeros(Bt, H, P, P)
+    for g in range(ng):
+        enter[:, :, g] = s
+        s = dg[:, :, g][..., None] * s + dS[:, :, g]
+    out = torch.empty(Bt, H, nc, Q, P)                         # stage 3
+    cx = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]], -2)
+    lo = torch.clamp(cum.amin(-2), max=0.0)
+    hi = torch.clamp(cum.amax(-2), min=0.0)
+    fac = (hi - lo).amax(-1) <= wk.FACTOR_SPAN                 # (B,H,nc)
+    strict = torch.ones(Q, Q, dtype=torch.bool).tril(-1)
+    bonus = (rb * u.float()[None, :, None, None, :] * kb).sum(-1)
+    for g in range(ng):
+        st = enter[:, :, g]
+        for c in range(g * group, min((g + 1) * group, nc)):
+            rc, kc, vc = rb[:, :, c], kb[:, :, c], vb[:, :, c]
+            re = rc * torch.exp(cx[:, :, c])
+            m = 0.5 * (lo[:, :, c] + hi[:, :, c])[..., None, :]
+            A_fac = ((re * torch.exp(-m))
+                     @ (kw[:, :, c] * torch.exp(m - last[:, :, c][..., None, :])
+                        ).transpose(-1, -2))
+            diff = cx[:, :, c][..., :, None, :] - cum[:, :, c][..., None, :, :]
+            E = torch.exp(torch.where(strict[..., None], diff, -torch.inf))
+            A_dir = (rc[..., :, None, :] * kc[..., None, :, :] * E).sum(-1)
+            A = torch.where(fac[:, :, c][..., None, None], A_fac, A_dir)
+            A = torch.where(strict, A, 0.0) + torch.diag_embed(bonus[:, :, c])
+            out[:, :, c] = re @ st + A @ vc
+            if c + 1 < min((g + 1) * group, nc):
+                st = (torch.exp(last[:, :, c])[..., None] * st
+                      + kw[:, :, c].transpose(-1, -2) @ vc)
+    out = out.permute(0, 2, 3, 1, 4).reshape(Bt, nc * Q, H, P)[:, :S]
+    n_fac = int(fac.sum())
+    return out, s, (n_fac, fac.numel() - n_fac)
+
+
+@pytest.mark.parametrize("S,P,chunk,decay", [
+    (1, 8, 16, "model"), (31, 16, 16, "mixed"), (33, 8, 16, "mixed"),
+    (63, 16, 32, "strong"), (65, 8, 32, "mixed"), (300, 16, 32, "mixed"),
+    (300, 8, 16, "model"), (100, 8, 16, "edge"), (300, 16, 32, "edge")])
+def test_staged_wkv_matches_plain_and_pallas_interpret(S, P, chunk, decay,
+                                                       J):
+    """The kernels' decomposition on the CPU, before any card, at G = 2
+    chunks a group (S of one group ± 1 crosses a group's edge): against
+    ``wkv6_plain`` and the reference's Pallas kernel in interpret mode,
+    within this file's CPU tolerance, each case at its own largest chunk
+    decay; the mixed and edge decays take both pair-term forms in one
+    call, the edge decay with spans up to just under the factored form's
+    limit and just over it."""
+    if decay == "mixed":
+        ops = mixed_inputs(S + P, 2, S, 3, P, chunk)
+    elif decay == "edge":
+        ops = edge_inputs(S + P, 2, S, 3, P, chunk)
+    else:
+        ops = wkv_inputs(S + P, 2, S, 3, P, strong=decay == "strong")
+    y, s, (n_fac, n_dir) = staged_wkv(*(_t(t) for t in ops), chunk, 2)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    if decay in ("mixed", "edge"):
+        assert n_fac > 0 and n_dir > 0
+    else:
+        assert (n_dir if decay == "model" else n_fac) == 0
+    py, ps = wk.wkv6_plain(*(_t(t) for t in ops), chunk=chunk)
+    want_y, want_s = J.wk.wkv6(*(_j(t) for t in ops), chunk=chunk,
+                               interpret=True)
+    span = 2.0 ** -20 * decay_span(ops[3], chunk)
+    for got, want in ((y, py), (s, ps), (y, want_y), (s, want_s)):
+        _near(got, want, 2e-5 + span)
+
+
+def test_wkv6_scratch_shapes():
+    """The group states and decays: ⌈⌈S / Q⌉ / GROUP⌉ groups, a ragged last
+    group included; rwkv6_7b's prefill layer holds 16.8 MB of states."""
+    S = 2 * wk.GROUP * 16 + 1
+    assert wk.scratch_shapes(2, S, 3, 8, 16) == ((2, 3, 3, 8, 8),
+                                                 (2, 3, 3, 8))
+    st, dg = wk.scratch_shapes(1, 8192, 64, 64, 32)
+    assert st == (1, 256 // wk.GROUP, 64, 64, 64)
+    assert np.prod(st) * 4 == 16_777_216 and dg == st[:-1]
 
 
 def test_wkv_chunked_from_a_state(J):
@@ -293,13 +439,26 @@ def cuda():
     (64, 64, 1000, 32, "bfloat16", False),
     (8, 32, 300, 32, "float32", False),      # rwkv6's SMOKE head
     (4, 128, 77, 16, "bfloat16", True),
-    (2, 64, 20, 32, "float32", False)])      # one chunk shorter than 32
+    (2, 64, 20, 32, "float32", False),       # one chunk shorter than 32
+    (64, 64, wk.GROUP * 32 - 1, 32, "bfloat16", False),  # a group less 1
+    (64, 64, wk.GROUP * 32 + 1, 32, "bfloat16", False),  # a group and 1
+    (8, 64, 2000, 32, "float32", "mixed"),   # both pair-term forms
+    (4, 128, 2000, 16, "bfloat16", "mixed"),
+    (8, 64, 2000, 32, "float32", "edge"),    # spans 20 to 60.1
+    (4, 128, 700, 16, "bfloat16", "edge")])
 def test_wkv6_kernel_matches_plain_on_card(H, P, S, chunk, dtype, strong,
                                            cuda):
     """Tolerance: 1e-5 of the largest |out| and |state| (fp32 sums in
     another order, FMAs allowed) plus the cumulative decay's rounding
-    (:func:`decay_span`)."""
-    r, k, v, w, u = wkv_inputs(H + S, 2, S, H, P, strong)
+    (:func:`decay_span`).  S crosses the kernels' groups of chunks; the
+    mixed and edge decays put chunks on both sides of the factored form's
+    limit, the edge decay just under and just over it."""
+    if strong == "mixed":
+        r, k, v, w, u = mixed_inputs(H + S, 2, S, H, P, chunk)
+    elif strong == "edge":
+        r, k, v, w, u = edge_inputs(H + S, 2, S, H, P, chunk)
+    else:
+        r, k, v, w, u = wkv_inputs(H + S, 2, S, H, P, strong)
     tr, tk, tv = (_t(x, dtype).to(cuda) for x in (r, k, v))
     tw, tu = _t(w).to(cuda), _t(u).to(cuda)
     wk.reset_launches()
@@ -308,6 +467,23 @@ def test_wkv6_kernel_matches_plain_on_card(H, P, S, chunk, dtype, strong,
     py, ps = wk.wkv6_plain(tr, tk, tv, tw, tu, chunk=chunk)
     torch.cuda.synchronize()
     span = 2.0 ** -20 * decay_span(w, chunk)
+    _near(y.cpu(), py.cpu(), 1e-5 + span)
+    _near(s.cpu(), ps.cpu(), 1e-5 + span)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_scratch_covers_a_ragged_last_group(cuda):
+    """B 2 and S = 2 groups of chunks + 40 steps: the scratch holds 3
+    groups per (b, h), the last of them 2 chunks (one ragged), and every
+    output row and the state come out as the plain version's."""
+    S, H, P, chunk = 2 * wk.GROUP * 32 + 40, 4, 64, 32
+    assert wk.scratch_shapes(2, S, H, P, chunk) == ((2, 3, H, P, P),
+                                                    (2, 3, H, P))
+    r, k, v, w, u = (_t(x).to(cuda) for x in wkv_inputs(7, 2, S, H, P, False))
+    y, s = ops.wkv6(r, k, v, w, u, chunk=chunk)
+    py, ps = wk.wkv6_plain(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    span = 2.0 ** -20 * decay_span(w.cpu().numpy(), chunk)
     _near(y.cpu(), py.cpu(), 1e-5 + span)
     _near(s.cpu(), ps.cpu(), 1e-5 + span)
 
