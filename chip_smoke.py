@@ -72,6 +72,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    c = 128), held bitwise against the same run through the pytree backend
    (``ps_backend="reference"``) on the card; max |diff| against phase 5's
    replay printed.
+5c. The elastic sharded wide lane: phase 5's fp32 spec with 8 PS shards
+   (pull jitter 0.1) and learners 0–31 crashing at 1.2 s for 2.5 s (their
+   slots cancelled, with coefficient 0, in events 1–5): one ``ring_apply``
+   launch per event over the padded width 8 · 1 250 001 (8 launches), held
+   bitwise against the same run through the plain versions on the card;
+   ms/event beside phase 5's and peak memory printed.
 6. The what-if lane: ``quadratic_whatif(arch="qwen2_1_5b")``
    (D = 1 777 086 464), 1-softsync λ = 128, sgd, 8 updates, bf16 ring;
    the loss must fall, and the run is held bitwise against the plain
@@ -82,8 +88,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    layer of the prefill_32k shape (B 1, KV 2, G 6, S 32 768, D 128, causal)
    and at one layer of zamba2_7b's prefill (B 1, H = KV = 32, S 8 192,
    D 112): the sm90 kernel in bf16 and the CUDA-core kernel in fp32, each
-   beside its plain version, ``scaled_dot_product_attention`` in bf16 (the
-   yardstick; the port never calls it) and its bound (``attention_cost``:
+   beside its plain version, ``scaled_dot_product_attention`` in the same
+   dtype (the yardstick; the port never calls it; fp32 through its
+   memory-efficient backend on K/V expanded to H heads) and its bound (``attention_cost``:
    the mask's live pairs at 989 TFLOP/s bf16, or 67 TFLOP/s fp32), with
    the share of the bound reached; and
    ``ssm_scan`` and ``wkv6`` at one layer of their model's prefill (B 1,
@@ -119,10 +126,26 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    exactly 32 ``wkv6`` launches per prefill forward; fp32 held within
    1e-3.  Each model is freed before the next.  Then the ``kernels`` JSON
    line (all six TPU kernels), the ``nvidia-smi`` line and, last,
-   ``{"ok": true, "device": ...}``.
+   ``{"ok": true, "device": ...}`` (after phase 11).
+11. The paper cells ``elastic``, ``topology`` and ``serve`` at their
+   default params (``epochs`` 2.0, 1 024 requests) through
+   ``campaign.run_cell`` on the card, into a temporary results directory:
+   every claim ``ok``; every record found in the reference's committed
+   envelope (``benchmarks/results/*.json``) by its spec's address without
+   the port's backend marker, its ``simulated_time``, ``updates``,
+   ``minibatches``, staleness block and serving trace counts equal and its
+   ``replay_path`` the envelope's (but for the one record named in
+   ``STALE_REPLAY_PATH``) and the CPU run's; ``test_error`` and ``serving_accuracy``
+   within two of the 2 048 test samples of the same cell run through the
+   plain versions on the CPU, and within 37 of the envelope's (the
+   envelopes come from an older reference: ``CARD_VS_CPU_TOL``,
+   ``ENVELOPE_TOL``); ``ring_apply``
+   launches per cell equal to the events its records replay (plus the 4 ×
+   40 of ``topology``'s engine-overhead timing); seconds and events/s
+   per cell.
 
 Launch counts are zeroed just before each main-path phase (4, 4b, 5, 5b,
-6, and each run of phases 8–10) and read just after it; they must equal the
+5c, 6, each run of phases 8–10 and each cell of phase 11) and read just after it; they must equal the
 update counts (phases 8–10: one kernel launch per attention, mamba or rwkv
 layer of a prefill forward, none in decode); flash launches are also
 counted per kernel (``flash_sm90``, ``flash_simt``).
@@ -665,6 +688,13 @@ def wide_spec(dtype="fp32"):
 
 def phase_wide_lane(dev, launches):
     import torch
+    from repro_torch.experiments.problems import get_problem
+    # the initial weights are the reference's draw, made once per problem
+    # on the host (data/threefry.py); made here, outside the timed runs
+    t0 = time.perf_counter()
+    get_problem("mlp_teacher", (("hidden", WIDE_HIDDEN),)).init("cpu")
+    log(f"  initial weights (the reference's draw, host numpy, once per "
+        f"process): {time.perf_counter() - t0:.3f} s")
     out = {}
     for dtype in ("fp32", "bf16"):
         spec = wide_spec(dtype)
@@ -691,9 +721,60 @@ def phase_wide_lane(dev, launches):
         out[dtype] = res.staleness["ring_buffer_K"]
         if dtype == "fp32":
             out["params"] = {k: v.cpu() for k, v in res.params.items()}
+            out["ms"] = secs / 8 * 1e3
         del res, plain
         torch.cuda.empty_cache()
     return out
+
+
+def elastic_wide_spec():
+    """Phase 5's fp32 spec with 8 PS shards (pull jitter 0.1: each slot's
+    weights from 8 rows at per-shard timestamps) and learners 0–31 down
+    from t = 1.2 s for 2.5 s (their slots cancelled in events 1–5)."""
+    from repro_torch.membership import MembershipTimeline
+    spec = wide_spec()
+    return spec.replace(run=spec.run.replace(
+        shards=8, shard_pull_jitter=0.1,
+        membership=MembershipTimeline.crash_restart(range(32), 1.2, 2.5)))
+
+
+def phase_elastic_sharded_wide_lane(dev, launches, wide_ms):
+    """Phase 5c: the wide lane through the sharded ring (one ring_apply
+    launch per event over the padded width 8 · 1 250 001) with masked
+    coefficients; held bitwise against the plain versions on the card."""
+    import torch
+    spec = elastic_wide_spec()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, secs, counts = drive(spec, dev)
+    peak = torch.cuda.max_memory_allocated()
+    launches["ring_apply"] += counts["ring_apply"]
+    expect(counts, "phase 5c", ring_apply=8)
+    tr = res.trace
+    masked = int((~tr.valid).any(axis=1).sum())
+    if masked < 2:
+        raise AssertionError(f"phase 5c: slots cancelled in {masked} events")
+    D = sum(v.numel() for v in res.params.values())
+    if D != WIDE_D:
+        raise AssertionError(f"phase 5c: D = {D}")
+    params_finite(res.params, "phase 5c")
+    log(f"  S = 8 (width {8 * -(-D // 8)}), c = 128, K = "
+        f"{res.staleness['ring_buffer_K']}; committed slots per event "
+        f"{tr.valid.sum(axis=1).tolist()}: {secs / 8 * 1e3:.3f} ms/event "
+        f"(phase 5 fp32: {wide_ms:.3f}; {secs:.3f} s incl. staging), peak "
+        f"{peak / 2**30:.2f} GiB, test error {res.metrics['test_error']}, "
+        f"ring_apply launches {counts['ring_apply']}")
+    params = {k: v.cpu() for k, v in res.params.items()}
+    del res
+    torch.cuda.empty_cache()
+    plain, psecs, _ = drive(spec.replace(
+        run=spec.run.replace(ring_impl="fused")), dev)
+    params_bitwise(params, {k: v.cpu() for k, v in plain.params.items()},
+                   "phase 5c")
+    log(f"    same run through the plain versions on the card: bitwise "
+        f"equal; {psecs / 8 * 1e3:.3f} ms/event")
+    del plain, params
+    torch.cuda.empty_cache()
 
 
 def phase_legacy_wide_lane(dev, launches, replayed):
@@ -966,8 +1047,9 @@ def time_flash(dev, S, H=12, KV=2, D=128):
     """One causal attention layer at B 1: by default qwen2_1_5b's (KV 2,
     G 6, D 128; the prefill_32k shape at S = 32 768).  The sm90 kernel in
     bf16 and the CUDA-core kernel in fp32, each beside its plain version on
-    the same inputs, and ``scaled_dot_product_attention`` in bf16 (the
-    yardstick).  Bounds: the larger of bytes over the HBM rate and
+    the same inputs, and ``scaled_dot_product_attention`` on the same
+    operands in each dtype (the yardstick; in fp32 its memory-efficient
+    backend on K/V expanded to H heads).  Bounds: the larger of bytes over the HBM rate and
     ``attention_cost``'s flops (the mask's live pairs, 4·D each) over the
     bf16 tensor-core rate, or over the fp32 rate for the CUDA-core kernel.
     Returns the sm90 kernel's numbers (the ``kernels`` line's row)."""
@@ -1011,16 +1093,36 @@ def time_flash(dev, S, H=12, KV=2, D=128):
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), 3)
             del qt, kt, vt
+        else:
+            # fp32: the memory-efficient backend (flash takes no fp32, and
+            # the math backend would hold the S × S scores), K/V heads
+            # expanded to H beforehand (it takes no GQA); the expansion is
+            # not timed
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            qt = q.transpose(1, 2)
+            kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                      for t in (k, v))
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                sdpa = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True).transpose(1, 2)
+                res["lib_diff_fp32"] = float((sdpa - fa.flash_attention(
+                    q, k, v, causal=True)).abs().max())
+                del sdpa
+                res["library_ms_fp32"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), 3)
+            del qt, kt, vt
         del q, k, v, vb
         torch.cuda.empty_cache()
-    lib_ms = res["library_ms"]
-    for path, name, peak in (("sm90", "bf16, sm90 kernel", PEAK_BF16_FLOPS),
-                             ("simt", "fp32, CUDA-core kernel",
-                              PEAK_FP32_FLOPS)):
-        r = res[path]
+    for path, name, peak, lib in (
+            ("sm90", "bf16, sm90 kernel", PEAK_BF16_FLOPS, "library_ms"),
+            ("simt", "fp32, CUDA-core kernel", PEAK_FP32_FLOPS,
+             "library_ms_fp32")):
+        r, lib_ms = res[path], res[lib]
         log(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} causal "
             f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; "
-            f"scaled_dot_product_attention bf16 {lib_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib[11:] or 'bf16'} "
+            f"{lib_ms:.4f} ms, kernel/library "
             f"{r['ms'] / lib_ms:.2f}x; bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}: {r['nbytes'] / 1e6:.1f} MB, "
             f"{r['flops'] / 1e12:.4f} Tflop of the mask's live pairs at "
@@ -1030,10 +1132,9 @@ def time_flash(dev, S, H=12, KV=2, D=128):
             f"plain| {r['max_abs_err']}"
             + ("" if r["share"] is None else
                f" = {r['share']:.4f} of the bf16 bound")
-            + (f"; max |sdpa - kernel| {res['lib_diff']}"
-               if path == "sm90" else "") + ")")
-    out = dict(res["sm90"], library_ms=lib_ms)
-    return out
+            + f"; max |sdpa - kernel| "
+            f"{res['lib_diff' if path == 'sm90' else 'lib_diff_fp32']})")
+    return dict(res["sm90"], library_ms=res["library_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -1613,6 +1714,149 @@ def phase_serving(phase, arch, fp32_limit, dev, launches):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the paper cells
+# ---------------------------------------------------------------------------
+# Phase 11 holds each record's metrics twice.  Against the same cell run
+# through the plain versions on the CPU: within two of the 2 048 test
+# samples, as phase 4 holds the card against the CPU (on the CPU the port
+# gives the reference's metrics exactly, tests/test_torch_campaign.py).
+# Against the reference's committed envelopes: within 37 of 2 048, since
+# the envelopes were written by an older reference, which the reference as
+# it stands misses by up to 35 samples (0.01709 test error, 0.01465
+# serving accuracy; ``python tests/test_torch_campaign.py``), plus the
+# same two samples.
+CARD_VS_CPU_TOL = 2 / 2048
+ENVELOPE_TOL = 37 / 2048
+CELL_METRICS = ("test_error", "serving_accuracy")
+SCHEDULE_KEYS = ("simulated_time", "updates", "minibatches")
+# Envelope records whose replay_path predates today's campaign: the
+# committed elastic envelope batched hardsync_b0/seed=2 with its group,
+# while the campaign's fixed checkpoint slices of 8 specs now leave it
+# alone in the second slice, so it replays sequentially.
+STALE_REPLAY_PATH = {("elastic", "hardsync_b0/seed=2"): "sequential"}
+SERVING_KEYS = ("n_requests", "n_served", "n_refreshes", "staleness_mean",
+                "staleness_max")
+
+
+def reference_address(echo) -> str:
+    """The JAX package's ``spec_hash`` of a record's spec echo: the port's
+    hashed payload without its backend marker (``spec_hash.BACKEND``)."""
+    from repro_torch.experiments.result import SCHEMA_VERSION
+    from repro_torch.experiments.spec_hash import (canonical_echo,
+                                                   content_hash,
+                                                   problem_identity)
+    return content_hash({"schema": SCHEMA_VERSION,
+                         "problem": problem_identity(echo.get("problem")),
+                         "spec": canonical_echo(echo)})
+
+
+def schedule_side(rec):
+    side = {k: rec["runtime"][k] for k in SCHEDULE_KEYS}
+    side["staleness"] = rec["staleness"]
+    if "serving" in rec["runtime"]:
+        side["serving"] = {k: rec["runtime"]["serving"][k]
+                           for k in SERVING_KEYS}
+    return side
+
+
+def phase_cells(dev, launches):
+    """Phase 11: the elastic, topology and serve cells through
+    ``campaign.run_cell`` at their default params, each record held
+    against the reference's committed envelope."""
+    import tempfile
+    from repro_torch.experiments import campaign, registry
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="results_torch_") as tmp:
+        for name in ("elastic", "topology", "serve"):
+            cell = registry.get_cell(name)
+            ref = json.loads((ROOT / "benchmarks" / "results"
+                              / f"{cell.result}.json").read_text())
+            by_address = {r["spec_hash"]: r for r in ref["records"]}
+            card_dir, cpu_dir = (Path(tmp) / name / d for d in ("card",
+                                                                 "cpu"))
+            derived, secs, counts = counted(lambda: campaign.run_cell(
+                name, results_dir=str(card_dir), device=dev))
+            env = registry.load_envelope(cell, str(card_dir))
+            cpu_metrics, cpu_paths, cpu_secs = {}, {}, None
+            if name != "topology":          # topology's records: measure
+                t0 = time.perf_counter()
+                campaign.run_cell(name, results_dir=str(cpu_dir),
+                                  device="cpu")
+                cpu_secs = time.perf_counter() - t0
+                cpu_recs = registry.load_envelope(cell,
+                                                  str(cpu_dir))["records"]
+                cpu_metrics = {r["spec_hash"]: r["metrics"] for r in cpu_recs}
+                cpu_paths = {r["spec_hash"]: r["runtime"]["replay_path"]
+                             for r in cpu_recs}
+            claims = env["campaign"]["claims"]
+            failed = sorted(k for k, c in claims.items() if not c["ok"])
+            if failed:
+                raise AssertionError(f"phase 11 {name}: claims {failed}")
+            events = 0
+            worst = {k: 0.0 for k in CELL_METRICS}      # against envelope
+            worst_cpu = {k: 0.0 for k in CELL_METRICS}  # against the CPU
+            for rec in env["records"]:
+                tag = rec["spec"]["tag"]
+                want = by_address[reference_address(rec["spec"])]
+                if schedule_side(rec) != schedule_side(want):
+                    raise AssertionError(f"phase 11 {name} {tag}: schedule "
+                                         f"side differs from the envelope")
+                path = rec["runtime"]["replay_path"]
+                want_path = STALE_REPLAY_PATH.get(
+                    (name, tag), want["runtime"]["replay_path"])
+                if path != want_path or path != cpu_paths.get(
+                        rec["spec_hash"], path):
+                    raise AssertionError(
+                        f"phase 11 {name} {tag}: replay_path {path}, "
+                        f"expected {want_path} (the envelope's "
+                        f"{want['runtime']['replay_path']}), the CPU run's "
+                        f"{cpu_paths.get(rec['spec_hash'])}")
+                for k in CELL_METRICS:
+                    if k in want["metrics"]:
+                        worst[k] = max(worst[k], abs(rec["metrics"][k]
+                                                     - want["metrics"][k]))
+                        worst_cpu[k] = max(worst_cpu[k], abs(
+                            rec["metrics"][k]
+                            - cpu_metrics[rec["spec_hash"]][k]))
+                if rec["runtime"]["replay_path"] != "measure":
+                    events += rec["runtime"]["updates"]
+            if name == "topology":   # its derive times 2 + 2 replays
+                events += 4 * derived["engine_overhead_cell"]["updates"]
+            launches["ring_apply"] += counts["ring_apply"]
+            expect(counts, f"phase 11 {name}", ring_apply=events)
+            paths = {}
+            for r in env["records"]:
+                p = r["runtime"]["replay_path"]
+                paths[p] = paths.get(p, 0) + 1
+            log(f"  {name}: {len(env['records'])} records ({paths}), every "
+                f"record's schedule side equal to the envelope's; claims "
+                f"ok {sorted(claims)}; ring_apply launches "
+                f"{counts['ring_apply']} (reckoned {events}); {secs:.1f} s, "
+                f"{counts['ring_apply'] / secs:.1f} events/s")
+            if cpu_secs is not None:
+                log(f"    max |card - envelope| "
+                    + ", ".join(f"{k} {v}" for k, v in worst.items())
+                    + f" (tolerance {ENVELOPE_TOL}); max |card - cpu| "
+                    + ", ".join(f"{k} {v}" for k, v in worst_cpu.items())
+                    + f" (tolerance {CARD_VS_CPU_TOL}; the CPU run "
+                    f"{cpu_secs:.1f} s)")
+            if name == "topology":
+                o = derived["engine_overhead_cell"]
+                log(f"    engine overhead: sharded {o['topology_s']:.4f} s vs "
+                    f"trivial {o['trivial_s']:.4f} s for {o['updates']} "
+                    f"updates ({o['overhead_x']:.3f}x)")
+            if max(worst.values()) > ENVELOPE_TOL:
+                raise AssertionError(f"phase 11 {name}: metrics {worst} off "
+                                     f"the envelope's")
+            if max(worst_cpu.values()) > CARD_VS_CPU_TOL:
+                raise AssertionError(f"phase 11 {name}: metrics "
+                                     f"{worst_cpu} off the CPU run's")
+            out[name] = {"seconds": secs, "launches": counts["ring_apply"],
+                         "worst": worst}
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1686,6 +1930,9 @@ def main() -> int:
     log("phase 5b: legacy wide lane — phase 5's fp32 spec, "
         "engine='legacy'")
     phase_legacy_wide_lane(dev, launches, wide_K.pop("params"))
+    log("phase 5c: elastic sharded wide lane — phase 5's fp32 spec, "
+        "shards=8, learners 0-31 crash at 1.2 s for 2.5 s")
+    phase_elastic_sharded_wide_lane(dev, launches, wide_K.pop("ms"))
     log("phase 6: what-if lane — quadratic_whatif arch=qwen2_1_5b, "
         "1-softsync λ=128, sgd, 8 updates, bf16 ring")
     whatif_K = phase_whatif_lane(dev, launches)
@@ -1722,6 +1969,13 @@ def main() -> int:
         tp = time.perf_counter()
         phase_serving(phase, arch, fp32_limit, dev, launches)
         log(f"  phase {phase} in {time.perf_counter() - tp:.1f} s")
+
+    log("phase 11: the paper cells elastic, topology and serve at their "
+        "default params through campaign.run_cell, against "
+        "benchmarks/results/*.json")
+    t11 = time.perf_counter()
+    phase_cells(dev, launches)
+    log(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
 
     kernels = []
     ring_src = "src/repro_torch/kernels/csrc/replay_ring.cu"

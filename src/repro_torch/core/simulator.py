@@ -64,7 +64,7 @@ class SimResult:
     minibatches: int
     params: Optional[object] = None
     history: Optional[List[Dict]] = None   # eval trace (sgd mode)
-    # train-while-serve result; the port has no serving lane yet
+    # train-while-serve result (the replay's serving lane)
     serving: Optional[object] = None
 
 

@@ -9,22 +9,26 @@ A problem object exposes what the replay engine needs:
 * ``batch_fn_for(mu, seed)`` / ``stage_minibatches`` — host (numpy)
   batches, deterministic per (seed, learner, step), bitwise the
   reference's (same splitmix64 hash, ``data/synthetic.py``);
-* ``eval_fn(params) -> dict`` and ``dataset_size``.
+* ``eval_fn(params) -> dict`` and ``dataset_size``;
+* ``stage_requests`` / ``request_metric`` — the serving lane's hooks
+  (``MLPProblem``): the request draw, bitwise the reference's, and the
+  metric of a chunk of requests in one call.
 
-``MLPProblem.init`` cannot reproduce the reference's ``jax.random`` draw:
-it draws from a ``torch.Generator(seed)``.  To replay the reference's exact
-initial weights, carry them across with ``experiments/carry.py`` and pass
-them as ``driver.run(spec, init=...)``.
+``MLPProblem.init`` draws the reference's initial weights: the same
+``jax.random.normal`` stream, reproduced in numpy (``data/threefry.py``;
+within 3 ulps of the reference's values, most of them bitwise).  To start
+from the reference's exact weights, carry them across with
+``experiments/carry.py`` and pass them as ``driver.run(spec, init=...)``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.data import threefry
 from repro_torch.data.synthetic import TeacherClassification
 
 
@@ -48,20 +52,28 @@ class MLPProblem:
         self.hidden = hidden
         self.seed = seed
         self._test_sets: Dict[torch.device, Tuple] = {}
+        self._init = None
 
     @property
     def dataset_size(self) -> int:
         return self.task.n_train
 
     def init(self, device) -> Dict[str, torch.Tensor]:
-        """w ~ N(0, 1/fan_in), zero biases, from ``torch.Generator(seed)``
-        (same distribution as the reference, different draws)."""
-        gen = torch.Generator().manual_seed(self.seed)
-        nf, nc, h = self.task.n_features, self.task.n_classes, self.hidden
-        w1 = torch.randn(nf, h, generator=gen) / math.sqrt(nf)
-        w2 = torch.randn(h, nc, generator=gen) / math.sqrt(h)
-        return {"w1": w1.to(device), "b1": torch.zeros(h, device=device),
-                "w2": w2.to(device), "b2": torch.zeros(nc, device=device)}
+        """w ~ N(0, 1/fan_in), zero biases: the reference's draw
+        (``PRNGKey(seed)`` split in two, one ``normal`` per weight, divided
+        by √fan_in in fp32), made once on the host and copied to
+        ``device`` on each call."""
+        if self._init is None:
+            nf, nc, h = self.task.n_features, self.task.n_classes, self.hidden
+            k1, k2 = threefry.split(threefry.prng_key(self.seed))
+            self._init = {
+                "w1": threefry.normal(k1, (nf, h)) / np.float32(np.sqrt(nf)),
+                "w2": threefry.normal(k2, (h, nc)) / np.float32(np.sqrt(h))}
+        h, nc = self.hidden, self.task.n_classes
+        return {"w1": torch.tensor(self._init["w1"], device=device),
+                "b1": torch.zeros(h, device=device),
+                "w2": torch.tensor(self._init["w2"], device=device),
+                "b2": torch.zeros(nc, device=device)}
 
     @staticmethod
     def _logits(p, x):
@@ -124,6 +136,31 @@ class MLPProblem:
 
     def eval_fn(self, p) -> Dict[str, float]:
         return {"test_error": self.test_error(p)}
+
+    # -- serving hooks (train-while-serve) -----------------------------------
+    _REQUEST_RNG_TAG = 0x53525645
+
+    def stage_requests(self, serving, fleet, seed: int = 0):
+        """One batch of held-out samples per inference request, with a
+        leading (R,) request axis, drawn host-side in one call — bitwise
+        the reference's draw (its rng stream is tagged apart from the
+        training batches and depends only on R, the request size and
+        ``seed``)."""
+        rng = np.random.default_rng([seed, self._REQUEST_RNG_TAG])
+        idx = rng.integers(0, self.task.n_test,
+                           (serving.n_requests, fleet.request_samples))
+        return (np.asarray(self.task.x_test)[idx],
+                np.asarray(self.task.y_test)[idx])
+
+    def request_metric(self, p, batch):
+        """Accuracy of n request batches at once: ``p`` leaves (n, …) (each
+        request's published weights), ``batch`` = (x (n, s, F), y (n, s)).
+        Returns (n,) fp32."""
+        x, y = batch
+        h = torch.tanh(torch.bmm(x, p["w1"]) + p["b1"][:, None, :])
+        logits = torch.bmm(h, p["w2"]) + p["b2"][:, None, :]
+        pred = torch.argmax(logits, dim=-1)
+        return torch.mean((pred == y).to(torch.float32), dim=-1)
 
 
 # ---------------------------------------------------------------------------

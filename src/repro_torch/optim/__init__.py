@@ -10,6 +10,7 @@ from repro_torch.optim.spec import (KERNEL_OPTIMIZERS, OPTIMIZERS,
 from repro_torch.optim.backends import (BACKENDS, RING_IMPLS,
                                         apply_event_flat, apply_event_ring,
                                         apply_event_ring_whatif,
+                                        apply_event_sharded,
                                         apply_single, apply_update,
                                         apply_update_flat, apply_update_tree,
                                         resolve_ring_impl, sgd_step)
@@ -20,5 +21,5 @@ __all__ = [
     "UpdateSpec", "init_state", "spec_from_run", "update_event",
     "apply_update", "apply_update_tree", "apply_update_flat",
     "apply_event_flat", "apply_event_ring", "apply_event_ring_whatif",
-    "apply_single", "resolve_ring_impl", "sgd_step",
+    "apply_event_sharded", "apply_single", "resolve_ring_impl", "sgd_step",
 ]

@@ -81,6 +81,21 @@ def apply_event_flat(spec: UpdateSpec, w, s, g, coef, lrs,
     return w, s
 
 
+def apply_event_sharded(spec: UpdateSpec, w, s, g, coef, lrs,
+                        mode: str = "combine"):
+    """:func:`apply_event_flat` over a leading shard axis: the stock
+    sharded replay's event.  ``w``/``s`` (S, Dp) (``s`` None for sgd),
+    ``g`` (S, c, Dp), ``coef``/``lrs`` (c,) shared by every shard (the
+    shards fold the same c pushes; only the pulled slices differ).  The
+    event is elementwise, so each shard's rows are exactly the shard slice
+    of the unsharded event — the same operations in the same order, one
+    call over all S rows at once.  Returns ``(w', s')`` as new tensors."""
+    if not spec.kernel_supported:
+        raise ValueError(f"{spec.optimizer!r} has no flat event path")
+    return apply_event_flat(spec, w, s, g.to(torch.float32).movedim(1, 0),
+                            coef, lrs, mode)
+
+
 def _f32(tree):
     return tree_map(lambda x: x.to(torch.float32), tree)
 
@@ -207,8 +222,9 @@ def resolve_ring_impl(impl: str, spec: UpdateSpec) -> str:
     resolve to ``"kernel"``: the ``kernels/replay_ring`` wrappers, which
     launch the CUDA kernels on CUDA tensors and run these plain versions
     on CPU tensors.  ``fused`` calls the plain versions directly on any
-    device.  Optimizers without a flat event path (adamw) resolve to
-    ``"stock"``, which the port's engine does not run yet."""
+    device.  ``stock`` is the gather → :func:`apply_event_flat` → row-write
+    chain, and optimizers without a flat event path (adamw) resolve to it
+    (its pytree body: :func:`apply_update_tree`)."""
     if impl not in RING_IMPLS:
         raise ValueError(f"unknown ring_impl {impl!r}: expected one of "
                          f"{RING_IMPLS}")

@@ -116,6 +116,35 @@ def batched_flat_to_tree(flat: torch.Tensor,
     return out
 
 
+def pad_flat(flat: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-pad the last axis out to ``width`` (the S·Dp width of a sharded
+    ring).  Trailing zeros are inert through sgd / momentum / adagrad
+    events, and ``[..., :D]`` is the exact inverse.  Returns ``flat``
+    itself when it already has that width."""
+    d = flat.shape[-1]
+    if width == d:
+        return flat
+    return torch.nn.functional.pad(flat, (0, width - d))
+
+
+def shard_pack(flat: torch.Tensor, shards: int, width: int) -> torch.Tensor:
+    """(…, D) → (…, S, Dp) per-shard rows, the last shard zero-padded to
+    the common width Dp = ⌈D/S⌉ (``core/topology.py``'s layout)."""
+    return pad_flat(flat, shards * width).reshape(
+        flat.shape[:-1] + (shards, width))
+
+
+def shard_pack_grads(g: torch.Tensor, shards: int,
+                     width: int) -> torch.Tensor:
+    """(c, D) stacked gradients → (S, c, Dp) per-shard slices."""
+    return shard_pack(g, shards, width).movedim(-2, 0)
+
+
+def shard_unpack(mat: torch.Tensor, dim: int) -> torch.Tensor:
+    """(…, S, Dp) per-shard rows → (…, D), the padding dropped."""
+    return mat.reshape(mat.shape[:-2] + (-1,))[..., :dim]
+
+
 def flat_to_tree(flat: torch.Tensor, layout: TreeLayout) -> Tree:
     """Split a (D,) vector back into the tree (leaf dtypes restored; views
     of ``flat`` where the dtype already matches)."""

@@ -55,7 +55,13 @@ def test_port_file_list_is_complete():
                      "models/transformer.py", "serve/engine.py",
                      "serve/scheduler.py", "models/ssm.py", "models/rwkv.py",
                      "kernels/ssm_scan.py", "kernels/wkv6.py",
-                     "configs/zamba2_7b.py", "configs/rwkv6_7b.py"):
+                     "configs/zamba2_7b.py", "configs/rwkv6_7b.py",
+                     "experiments/sweep.py", "experiments/registry.py",
+                     "experiments/campaign.py", "experiments/validate.py",
+                     "experiments/smoke.py", "experiments/cells/__init__.py",
+                     "experiments/cells/elastic_churn.py",
+                     "experiments/cells/topology_scaling.py",
+                     "experiments/cells/train_while_serve.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",
@@ -79,6 +85,11 @@ def test_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "import repro_torch.core.baselines\n"
             "import repro_torch.models, repro_torch.serve.scheduler\n"
             "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.experiments.campaign\n"
+            "import repro_torch.experiments.validate\n"
+            "import repro_torch.experiments.smoke\n"
+            "from repro_torch.experiments.registry import cell_names\n"
+            "cell_names()\n"
             "from repro_torch.configs import get_config\n"
             "get_config('qwen2_1_5b')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -179,3 +190,16 @@ def test_serving_entry_points_raise_without_card(no_card):
     params = init_model(cfg, 0, device="cpu")
     out = generate(cfg, RunConfig(), params, [[1, 2, 3]], 2)
     assert out.shape == (1, 2) and out.device.type == "cpu"
+
+
+def test_sweep_and_campaign_default_to_cuda_and_raise_without_card(
+        no_card, tmp_path):
+    from repro_torch.experiments import campaign, run_sweep
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sweep([_spec(), _spec().replace(run=_spec().run.replace(
+            seed=1))])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        campaign.run_cell("elastic", {"epochs": 0.01},
+                          results_dir=str(tmp_path))
+    res = run_sweep([_spec()], device="cpu")
+    assert res[0].runtime["replay_path"] == "sequential"

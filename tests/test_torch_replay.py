@@ -244,20 +244,49 @@ def test_execute_raw_callables():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(ring_impl="stock"), "4.2"),
-    (dict(optimizer="adamw"), "4.2"),
-    (dict(shards=2), "4.5"),
-    (dict(groups=2), "4.5"),
     (dict(placement="spmd"), "item 8"),
-    (dict(membership=TTimeline.crash_restart([1], 2.0, 3.0)), "4.4"),
 ])
 def test_not_ported_paths_raise(change, item):
+    """Only SPMD placement is still refused (ROADMAP.md item 8)."""
     ts = TSpec(run=TRun(protocol="softsync", n_learners=8, minibatch=4,
                         **change),
                problem="mlp_teacher", problem_args={"hidden": HIDDEN},
                steps=STEPS)
     with pytest.raises(NotImplementedError, match=item):
         t_run(ts, device="cpu")
+
+
+@pytest.mark.parametrize("name,port_kw,ref_kw", [
+    ("stock", dict(ring_impl="stock"), None),
+    ("adamw", dict(optimizer="adamw"), None),
+    ("shards", dict(shards=2), None),
+    ("groups", dict(groups=2), None),
+    ("membership",
+     dict(membership=TTimeline.crash_restart([1], 2.0, 3.0)), "membership"),
+])
+def test_formerly_refused_paths_match_reference(name, port_kw, ref_kw, R):
+    """The paths that raised NotImplementedError until ROADMAP.md items
+    4.2, 4.4 and 4.5 were ported now run through ``driver.run`` and give
+    the reference's run (carried initial weights; final parameters within
+    ``rtol=1e-5, atol=2e-6``; staleness and runtime exactly)."""
+    from repro.membership import MembershipTimeline
+    kw = dict(port_kw)
+    if ref_kw == "membership":
+        kw = dict(membership=MembershipTimeline.crash_restart([1], 2.0,
+                                                              3.0))
+    base = dict(protocol="softsync", n_learners=8, minibatch=4)
+    common = dict(problem="mlp_teacher", problem_args={"hidden": HIDDEN},
+                  steps=STEPS)
+    ref = R.run(R.Spec(run=R.Run(**base, **kw), **common))
+    init = params_from_jax(
+        {k: np.asarray(v) for k, v in
+         R.problem("mlp_teacher", (("hidden", HIDDEN),)).init.items()},
+        "cpu")
+    port = t_run(TSpec(run=TRun(**base, **port_kw), **common), device="cpu",
+                 init=init)
+    _close_params(ref.params, port.params, "fp32")
+    assert ref.staleness == port.staleness
+    assert ref.runtime == port.runtime
 
 
 def test_legacy_engine_not_ported():
