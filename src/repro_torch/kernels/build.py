@@ -15,7 +15,8 @@ plain PyTorch versions they are held against.  No fast-math.
 ``wkv6.cu`` are held against their plain versions within stated
 tolerances, not bitwise, and build without ``-fmad=false``
 (``SOURCE_FLAGS``); the hash covers each source's own flags.
-``flash_attention_sm90.cu`` finds libcuda's ``cuTensorMapEncodeTiled``
+``flash_attention.cu`` (fp32 operands, 3×TF32 on the tensor cores) and
+``flash_attention_sm90.cu`` (bf16) find libcuda's ``cuTensorMapEncodeTiled``
 through the runtime, so no source links against anything but cudart.
 
 The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``,

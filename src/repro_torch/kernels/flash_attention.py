@@ -4,24 +4,25 @@ prefill (CUDA, Hopper).
 Counterpart of ``repro/kernels/flash_attention.py``, whose Pallas TPU kernel
 (``flash_attention_bkgsd``: ``_attn_kernel`` / ``_attn_block``) becomes two
 hand-written CUDA C++ kernels, built by ``kernels/build.py`` and bound with
-``ctypes``, chosen by the operands' dtype (:func:`kernel_path`):
+``ctypes``, chosen by the operands' dtype (:func:`kernel_path`).  Both run
+both products on the tensor cores (``wgmma``) with K/V tiles fed by TMA
+through a ring in shared memory, one head of 128 query positions per block:
 
-* ``"sm90"`` — bf16 operands, ``csrc/flash_attention_sm90.cu``: both
-  products on the tensor cores (``wgmma``), K/V tiles fed by TMA through a
-  ring in shared memory, 128 query positions of one head per block against
+* ``"sm90"`` — bf16 operands, ``csrc/flash_attention_sm90.cu``, against
   128-key tiles.  P is rounded to bf16 before P·V (the TPU kernel keeps it
   in fp32), so it is held to its plain version within
-  :func:`sm90_error_share`'s bound.  Its tensor maps impose the TMA's
-  alignment rules (:func:`tma_error`): the wrapper refuses operands that
-  break them.
-* ``"simt"`` — fp32 operands, ``csrc/flash_attention.cu``: fp32 products on
-  the CUDA cores with the TPU kernel's GQA fold (the G query heads of one KV
-  head share each K/V tile), within 2e-5 of its plain version.
+  :func:`sm90_error_share`'s bound.
+* ``"tf32x3"`` — fp32 operands, ``csrc/flash_attention.cu``, against 32-key
+  tiles.  Each product runs as 3×TF32: every operand split into a TF32 big
+  part and a TF32 small remainder, a·b ≈ a_small·b_big + a_big·b_small +
+  a_big·b_big, about fp32's accuracy; within 2e-5 of its plain version.
 
-Both compute online-softmax attention with causal and sliding-window masks:
-q is read as (B, KV, G, Sq, D), k/v as (B, KV, Sk, D); head ``h`` of the
-model's (B, S, H, D) layout is ``kv * G + g``; the softmax statistics and
-the accumulator are fp32; the output has q's dtype.
+Their tensor maps impose the TMA's alignment rules (:func:`tma_error`): the
+wrapper refuses operands that break them.  Both compute online-softmax
+attention with causal and sliding-window masks: q is read as
+(B, KV, G, Sq, D), k/v as (B, KV, Sk, D); head ``h`` of the model's
+(B, S, H, D) layout is ``kv * G + g``; the softmax statistics and the
+accumulator are fp32; the output has q's dtype.
 
 The mask constant is the TPU kernel's finite ``NEG_INF = -1e30`` and the
 normaliser is floored at 1e-30: a row whose first processed tile holds no
@@ -30,22 +31,22 @@ live key accumulates ``exp(0) = 1`` terms that the next tile's
 would be ``exp(-inf + inf) = NaN``).  Fully masked tiles are skipped as on
 the TPU: causal tiles strictly above the diagonal, tiles before the window.
 
-``flash_attention_bkgsd`` checks device, dtype, shapes and that the head dim
-is contiguous (the other axes may be strided, so the model's layout launches
-without a copy), then launches the dtype's kernel on CUDA tensors — or, for
-CPU tensors, runs :func:`flash_attention_bkgsd_plain`, the same tile loop,
-online softmax, mask constant and tile skip in plain PyTorch, at the tiles
-of the kernel the dtype would launch (:func:`kernel_tiles`), which the
-kernels are held against on the card.  Nothing falls back: a CUDA call
-launches or raises.  ``launches["flash_attention"]`` counts kernel launches
-of both kernels, ``launches_by_path`` each kernel's (plain-version calls do
-not count).
+``flash_attention_bkgsd`` checks device, dtype, shapes and the TMA's rules
+(the axes other than the head dim may be strided, so the model's layout
+launches without a copy), then launches the dtype's kernel on CUDA tensors
+— or, for CPU tensors, runs :func:`flash_attention_bkgsd_plain`, the same
+tile loop, online softmax, mask constant and tile skip in plain PyTorch, at
+the tiles of the kernel the dtype would launch (:func:`kernel_tiles`),
+which the kernels are held against on the card.  Nothing falls back: a
+CUDA call launches or raises.  ``launches["flash_attention"]`` counts kernel
+launches of both kernels, ``launches_by_path`` each kernel's (plain-version
+calls do not count).
 
-Tiling of the fp32 kernel: ``ROWS = 64`` query rows (G heads × ``blk_q``
-positions, ``blk_q = min(ROWS // G, Sq)``) against ``BLK_K = 64`` keys per
-tile.  The bf16 kernel: ``SM90_BLK = 128`` positions of one head against
-128 keys.  :func:`attention_cost` counts the work of the mask itself, which
-no tiling changes: the bound the kernels are measured against.
+Tiling: ``BLK_Q = 128`` positions of one head per query tile in both; K
+tiles of ``SM90_BLK_K = 128`` keys (bf16) or ``TF32X3_BLK_K = 32`` (fp32,
+whose big and small copies of K and Vᵀ fill the shared memory).
+:func:`attention_cost` counts the work of the mask itself, which no tiling
+changes: the bound the kernels are measured against.
 """
 
 from __future__ import annotations
@@ -53,23 +54,23 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-ROWS = 64            # csrc/flash_attention.cu: query rows per block
-BLK_K = 64           # csrc/flash_attention.cu: keys per K/V tile
-SM90_BLK = 128       # csrc/flash_attention_sm90.cu: positions and keys per tile
+BLK_Q = 128          # both kernels: query positions (of one head) per block
+SM90_BLK_K = 128     # csrc/flash_attention_sm90.cu: keys per K/V tile
+TF32X3_BLK_K = 32    # csrc/flash_attention.cu: keys per K/V tile
 HEAD_DIMS = (16, 32, 64, 112, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PATHS = {torch.bfloat16: "sm90", torch.float32: "simt"}
+_PATHS = {torch.bfloat16: "sm90", torch.float32: "tf32x3"}
+_BLK_K = {"sm90": SM90_BLK_K, "tf32x3": TF32X3_BLK_K}
 
 # kernel launches since the last reset_launches(): both kernels, and each
 launches = {"flash_attention": 0}
-launches_by_path = {"sm90": 0, "simt": 0}
+launches_by_path = {"sm90": 0, "tf32x3": 0}
 
 
 def reset_launches() -> None:
@@ -80,24 +81,20 @@ def reset_launches() -> None:
 
 def kernel_path(dtype: torch.dtype) -> str:
     """The CUDA kernel that operands of ``dtype`` launch: ``"sm90"`` (bf16:
-    ``csrc/flash_attention_sm90.cu``) or ``"simt"`` (fp32:
+    ``csrc/flash_attention_sm90.cu``) or ``"tf32x3"`` (fp32:
     ``csrc/flash_attention.cu``)."""
     if dtype not in _PATHS:
         raise ValueError(f"flash_attention takes fp32 or bf16, not {dtype}")
     return _PATHS[dtype]
 
 
-def kernel_tiles(G: int, Sq: int, Sk: int,
+def kernel_tiles(Sq: int, Sk: int,
                  dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
-    """(blk_q, blk_k) of the CUDA kernel that ``dtype`` launches, for G
-    query heads per KV head, in the plain version's terms (``blk_q``
-    positions of all G heads per query tile)."""
-    if kernel_path(dtype) == "sm90":
-        return min(SM90_BLK, Sq), min(SM90_BLK, Sk)
-    if not 1 <= G <= ROWS:
-        raise ValueError(f"G = {G} query heads per KV head; the kernel "
-                         f"takes 1 to {ROWS}")
-    return min(ROWS // G, Sq), min(BLK_K, Sk)
+    """(blk_q, blk_k) of the CUDA kernel that ``dtype`` launches, in the
+    plain version's terms (``blk_q`` positions of all G heads per query
+    tile; both kernels put one head's 128 positions in a block, so G
+    does not enter)."""
+    return min(BLK_Q, Sq), min(_BLK_K[kernel_path(dtype)], Sk)
 
 
 def attention_cost(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
@@ -118,8 +115,8 @@ def attention_cost(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
 
 
 def tma_error(t: torch.Tensor) -> Optional[str]:
-    """Why the sm90 kernel cannot read or write ``t`` (None when it can):
-    its tensor maps need a contiguous last dim, a 16-byte aligned base and
+    """Why the kernels cannot read or write ``t`` (None when it can): their
+    tensor maps need a contiguous last dim, a 16-byte aligned base and
     every other stride a nonzero multiple of 16 bytes (dims of size 1 are
     free: their stride is never used)."""
     if t.stride(-1) != 1:
@@ -164,15 +161,15 @@ def sm90_error_share(got: torch.Tensor, want: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The fp32 kernel with its C signature declared; its tile constants
+    """The fp32 (3×TF32) kernel with its C signature declared; its tiles
     must be the ones this module assumes."""
     lib = build.load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                        i, f, i, i, p]
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f,
+                                        i, i, p]
     lib.flash_attention_fwd.restype = i
-    for name, want in (("flash_attention_rows", ROWS),
-                       ("flash_attention_block_k", BLK_K)):
+    for name, want in (("flash_attention_block_q", BLK_Q),
+                       ("flash_attention_block_k", TF32X3_BLK_K)):
         fn = getattr(lib, name)
         fn.restype = i
         if fn() != want:
@@ -189,10 +186,10 @@ def _sm90_library() -> ctypes.CDLL:
                                              f, i, i, p]
     lib.flash_attention_sm90_fwd.restype = i
     lib.flash_attention_sm90_block.restype = i
-    if lib.flash_attention_sm90_block() != SM90_BLK:
+    if lib.flash_attention_sm90_block() != SM90_BLK_K:
         raise RuntimeError(f"flash_attention_sm90_block() = "
                            f"{lib.flash_attention_sm90_block()}, expected "
-                           f"{SM90_BLK}")
+                           f"{SM90_BLK_K}")
     return lib
 
 
@@ -206,7 +203,7 @@ def _shapes(q, k, v) -> Tuple[int, int, int, int, int, int]:
     if tuple(k.shape) != (B, KV, Sk, D) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k/v must be {(B, KV, Sk, D)}, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _PATHS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must share one dtype of fp32 / bf16, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -218,41 +215,27 @@ def _shapes(q, k, v) -> Tuple[int, int, int, int, int, int]:
     return B, KV, G, Sq, Sk, D
 
 
-def _launch_simt(q, k, v, out, causal, window, stream) -> None:
+def _launch(q, k, v, out, causal, window, stream) -> None:
+    """Both kernels take the same arguments: 14 element strides of q, k, v
+    and out, read through tensor maps after the TMA's rules are checked."""
     B, KV, G, Sq, Sk, D = _shapes(q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must have a contiguous head dim")
-    strides = (q.stride(0), q.stride(1), q.stride(2), q.stride(3),
-               k.stride(0), k.stride(1), 0, k.stride(2),
-               v.stride(0), v.stride(1), 0, v.stride(2),
-               out.stride(0), out.stride(1), out.stride(2), out.stride(3))
-    lib = _library()
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        (ctypes.c_longlong * 16)(*strides), B, KV, G, Sq, Sk, D,
-        _DTYPES[q.dtype], kernel_tiles(G, Sq, Sk)[0],
-        float(1.0 / math.sqrt(D)), int(causal), int(window), stream)
-    build.raise_on(lib, "flash_attention", err, "flash_attention")
-
-
-def _launch_sm90(q, k, v, out, causal, window, stream) -> None:
-    B, KV, G, Sq, Sk, D = _shapes(q, k, v)
+    path = kernel_path(q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         why = tma_error(t)
         if why is not None:
-            raise ValueError(f"{name}: {why} (the sm90 kernel's TMA rules)")
+            raise ValueError(f"{name}: {why} (the {path} kernel's TMA rules)")
     strides = (_tma_strides(q) + _tma_strides(k) + _tma_strides(v)
                + _tma_strides(out))
-    lib = _sm90_library()
-    err = lib.flash_attention_sm90_fwd(
+    if path == "sm90":
+        lib, source, fwd = (_sm90_library(), "flash_attention_sm90",
+                            "flash_attention_sm90_fwd")
+    else:
+        lib, source, fwd = _library(), "flash_attention", "flash_attention_fwd"
+    err = getattr(lib, fwd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         (ctypes.c_longlong * 14)(*strides), B, KV, G, Sq, Sk, D,
         float(1.0 / math.sqrt(D)), int(causal), int(window), stream)
-    build.raise_on(lib, "flash_attention_sm90", err, "flash_attention")
-
-
-_LAUNCH = {"sm90": _launch_sm90, "simt": _launch_simt}
+    build.raise_on(lib, source, err, "flash_attention")
 
 
 def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -273,7 +256,7 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif (tuple(out.shape) != tuple(q.shape) or out.dtype != q.dtype
           or out.device != dev):
         raise ValueError(f"out must be {tuple(q.shape)} {q.dtype} on {dev}")
-    kq, kk = kernel_tiles(G, Sq, Sk, q.dtype)
+    kq, kk = kernel_tiles(Sq, Sk, q.dtype)
     if dev.type == "cpu":
         out.copy_(flash_attention_bkgsd_plain(
             q, k, v, causal=causal, window=window, blk_q=blk_q or kq,
@@ -283,15 +266,14 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
                          f"(plain version), not {dev.type}")
     if (blk_q or kq, blk_k or kk) != (kq, kk):
-        raise ValueError(f"the CUDA kernel tiles {(kq, kk)} at G = {G}, "
-                         f"not {(blk_q, blk_k)}")
+        raise ValueError(f"the CUDA kernel tiles {(kq, kk)}, not "
+                         f"{(blk_q, blk_k)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}; the kernel takes {HEAD_DIMS}")
-    path = kernel_path(q.dtype)
-    _LAUNCH[path](q, k, v, out, causal, window,
-                  torch.cuda.current_stream(dev).cuda_stream)
+    _launch(q, k, v, out, causal, window,
+            torch.cuda.current_stream(dev).cuda_stream)
     launches["flash_attention"] += 1
-    launches_by_path[path] += 1
+    launches_by_path[kernel_path(q.dtype)] += 1
     return out
 
 
@@ -323,12 +305,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bkgsd_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, causal: bool,
                                 window: int = 0, blk_q: int = 128,
-                                blk_k: int = 128) -> torch.Tensor:
+                                blk_k: int = 128,
+                                matmul: Callable = torch.matmul
+                                ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the same tile loop over K
     tiles in order, online softmax, mask constant, tile skip and fp32 math,
     vectorised over the query tiles (the kernel's parallel axis).  For each
     K tile only the query tiles for which it is live take part, so no tile
-    the kernel skips is computed here either."""
+    the kernel skips is computed here either.  ``matmul`` takes both
+    products (Q·Kᵀ and P·V) of a tile; a test may pass one that emulates a
+    kernel's arithmetic."""
     B, KV, G, Sq, Sk, D = _shapes(q, k, v)
     blk_q, blk_k = min(blk_q, Sq), min(blk_k, Sk)
     nq, nk = -(-Sq // blk_q), -(-Sk // blk_k)
@@ -358,8 +344,8 @@ def flash_attention_bkgsd_plain(q: torch.Tensor, k: torch.Tensor,
             hi = min(hi, -(-(k0 + blk_k - 1 + window) // blk_q))
         if lo >= hi:
             continue
-        s = torch.matmul(qf[:, lo:hi], kf[:, j].unsqueeze(1).transpose(
-            -1, -2)) * scale                                 # (BKV, n, R, bk)
+        s = matmul(qf[:, lo:hi], kf[:, j].unsqueeze(1).transpose(
+            -1, -2)) * scale                         # (BKV, n, R, bk)
         kp = k0 + torch.arange(blk_k, device=dev)
         qp = q_pos[lo:hi, :, None]
         mask = (kp < Sk).expand(hi - lo, R, blk_k)
@@ -374,7 +360,7 @@ def flash_attention_bkgsd_plain(q: torch.Tensor, k: torch.Tensor,
         alpha = torch.exp(m_prev - m_new)
         l[:, lo:hi] = l[:, lo:hi] * alpha + p.sum(dim=-1)
         acc[:, lo:hi] = (acc[:, lo:hi] * alpha[..., None]
-                         + torch.matmul(p, vf[:, j].unsqueeze(1)))
+                         + matmul(p, vf[:, j].unsqueeze(1)))
         m[:, lo:hi] = m_new
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     o = o.reshape(B, KV, nq, G, blk_q, D).transpose(2, 3).reshape(

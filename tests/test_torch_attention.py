@@ -10,8 +10,12 @@ reference (``repro``), on the same numpy-seeded inputs.
   ring), ``rms_norm``, ``apply_rope`` and ``swiglu``.
 * The stacked caches: a real allocation per unit, written in place.
 
-Tests marked ``cuda`` hold the CUDA kernel against its plain version on a
-card; they skip without one.
+* The fp32 kernel's 3×TF32 products emulated by bit masks through the plain
+  version's tile loop, against the plain version and the Pallas kernel
+  (and big·big alone, which misses the 2e-5).
+
+Tests marked ``cuda`` hold the CUDA kernels against their plain versions on
+a card; they skip without one.
 """
 
 import dataclasses
@@ -130,8 +134,98 @@ def test_flash_wrapper_checks_operands():
         fa.flash_attention(q, k.double(), k.double())
     with pytest.raises(ValueError, match="group"):
         fa.flash_attention(torch.zeros(1, 8, 3, 16), k, k)
-    with pytest.raises(ValueError, match="G = 65"):
-        fa.kernel_tiles(65, 8, 8)
+    # one head per block in both kernels: G does not enter the tiles
+    assert fa.kernel_tiles(300, 300) == (128, 32)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fa.kernel_tiles(8, 8, torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 kernel's 3xTF32 arithmetic, emulated through the plain version
+# ---------------------------------------------------------------------------
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero as ``cvt.rna.tf32.f32``: by bit masks on the fp32 pattern.  A
+    tensor core reads only these 19 bits of an fp32 operand."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _matmul_tf32x3(a, b):
+    """a @ b as the fp32 kernel forms it: each operand split into a TF32
+    big part and the TF32 rounding of its remainder, small·big +
+    big·small + big·big (the small·small term dropped), every product of
+    two TF32 values exact in fp32 and summed in fp32."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)
+            + torch.matmul(ab, bb))
+
+
+def _matmul_tf32(a, b):
+    """a @ b with only the big·big product: one TF32 pass."""
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _bkgsd(seed, B, KV, G, Sq, Sk, D):
+    return (_randn(seed, (B, KV, G, Sq, D)), _randn(seed + 1, (B, KV, Sk, D)),
+            _randn(seed + 2, (B, KV, Sk, D)))
+
+
+# chip_smoke.FLASH_CELLS cut to CPU size: (B, KV, G, Sq, Sk, D, causal,
+# window); the last two with Sk below the kernel's 32-key tile, so rows
+# without a live key average the Sk keys or, in a skipped query tile, are 0
+TF32X3_CELLS = [
+    (1, 1, 6, 150, 150, 128, True, 0),
+    (1, 1, 6, 150, 150, 128, True, 48),
+    (1, 1, 6, 60, 100, 128, False, 0),
+    (1, 2, 1, 150, 150, 112, True, 0),
+    (1, 2, 1, 150, 20, 16, False, 24),
+    (1, 1, 6, 70, 20, 16, True, 0),
+]
+
+
+@pytest.mark.parametrize("B,KV,G,Sq,Sk,D,causal,window", TF32X3_CELLS)
+def test_flash_tf32x3_emulation_matches_plain_and_pallas_interpret(
+        B, KV, G, Sq, Sk, D, causal, window, J):
+    """The fp32 kernel's products (3xTF32) through the plain version's tile
+    loop at the kernel's tiles: within 2e-5 of the plain version in fp32
+    and of the reference's Pallas kernel in interpret mode."""
+    q, k, v = _bkgsd(80, B, KV, G, Sq, Sk, D)
+    bq, bk = fa.kernel_tiles(Sq, Sk, torch.float32)
+    assert (bq, bk) == (min(128, Sq), min(32, Sk))
+    kw = dict(causal=causal, window=window, blk_q=bq, blk_k=bk)
+    emu = fa.flash_attention_bkgsd_plain(_t(q), _t(k), _t(v),
+                                         matmul=_matmul_tf32x3, **kw)
+    plain = fa.flash_attention_bkgsd_plain(_t(q), _t(k), _t(v), **kw)
+    want = J.fa.flash_attention_bkgsd(_j(q), _j(k), _j(v), interpret=True,
+                                     **kw)
+    assert bool(torch.isfinite(emu).all())
+    np.testing.assert_allclose(_np(emu), _np(plain), atol=2e-5)
+    np.testing.assert_allclose(_np(emu), _np(want), atol=2e-5)
+    if Sk < 32 and window:   # both kinds of row without a live key
+        empty = Sk - 1 + window
+        assert float(_np(plain)[..., empty:128, :].std()) > 0
+        assert float(np.abs(_np(plain)[..., 128:, :]).max()) == 0.0
+
+
+def test_flash_tf32_big_products_alone_miss_the_tolerance():
+    """The other two products are needed: with big·big alone (one TF32
+    pass, ~2^-11 relative per product) the output misses 2e-5 at D 128,
+    where the three products hold it."""
+    q, k, v = _bkgsd(90, 1, 1, 6, 150, 150, 128)
+    kw = dict(causal=True, blk_q=128, blk_k=32)
+    plain = fa.flash_attention_bkgsd_plain(_t(q), _t(k), _t(v), **kw)
+    one = fa.flash_attention_bkgsd_plain(_t(q), _t(k), _t(v),
+                                         matmul=_matmul_tf32, **kw)
+    three = fa.flash_attention_bkgsd_plain(_t(q), _t(k), _t(v),
+                                           matmul=_matmul_tf32x3, **kw)
+    assert float((one - plain).abs().max()) > 2e-5
+    assert float((three - plain).abs().max()) <= 2e-5
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +383,12 @@ def cuda():
                                     (32, 32, 112)])
 def test_flash_kernel_matches_plain_on_card(H, KV, D, causal, window, dtype,
                                             cuda):
-    """Tolerance: 2e-5 absolute in fp32 (the CUDA-core kernel; exp and the
-    summation order differ, FMAs are allowed); in bf16 (the sm90 kernel,
-    which rounds P to bf16 before P·V) 2⁻⁸ · max|v| + one ulp of the
-    larger output + 2e-5 (``flash_attention.sm90_error_share``)."""
+    """Tolerance: 2e-5 absolute in fp32 (the 3×TF32 kernel: each product
+    split into three TF32 products on the tensor cores errs by ~2⁻²¹
+    relative, below fp32's other differences — exp and the summation
+    order; FMAs are allowed); in bf16 (the sm90 kernel, which rounds P to
+    bf16 before P·V) 2⁻⁸ · max|v| + one ulp of the larger output + 2e-5
+    (``flash_attention.sm90_error_share``)."""
     q, k, v = _qkv(40, 2, 201, H, KV, D, dtype)
     tq, tk, tv = (_t(x, dtype).to(cuda) for x in (q, k, v))
     fa.reset_launches()
@@ -300,7 +396,7 @@ def test_flash_kernel_matches_plain_on_card(H, KV, D, causal, window, dtype,
     assert fa.launches["flash_attention"] == 1
     assert fa.launches_by_path[fa.kernel_path(_T[dtype])] == 1
     G = H // KV
-    bq, bk = fa.kernel_tiles(G, 201, 201, _T[dtype])
+    bq, bk = fa.kernel_tiles(201, 201, _T[dtype])
     view = lambda t: t.reshape(2, 201, KV, G, D).permute(0, 2, 3, 1, 4)
     vb = tv.permute(0, 2, 1, 3)
     plain = fa.flash_attention_bkgsd_plain(
@@ -321,19 +417,20 @@ def test_flash_kernel_matches_plain_on_card(H, KV, D, causal, window, dtype,
 @pytest.mark.parametrize("G,causal,window", [(2, False, 16), (1, True, 8)])
 def test_flash_fp32_rows_without_live_key_at_short_sk_on_card(
         G, causal, window, cuda):
-    """Sk = 40 < 64 keys, Sq = 100 queries in a window: the rows past
-    Sk − 1 + window see no live key.  In a processed query tile such a row
-    averages the Sk keys of the plain version's one Sk-wide key tile, so the
-    kernel's 64-wide tile must give its padded keys no weight; a query tile
-    the plain version skips gives zeros in both."""
-    B, KV, Sq, Sk, D = 1, 2, 100, 40, 32
+    """Sk = 20 < 32 keys (the fp32 kernel's key tile), Sq = 300 queries in
+    a window: the rows past Sk − 1 + window see no live key.  In a
+    processed query tile such a row averages the Sk keys of the plain
+    version's one Sk-wide key tile, so the kernel's 32-wide tile must give
+    its padded keys no weight; a query tile the plain version skips gives
+    zeros in both."""
+    B, KV, Sq, Sk, D = 1, 2, 300, 20, 32
     rng = np.random.default_rng(41)
     q, k, v = (torch.tensor(rng.standard_normal(shape).astype(np.float32),
                             device=cuda)
                for shape in ((B, KV, G, Sq, D), (B, KV, Sk, D),
                              (B, KV, Sk, D)))
     out = fa.flash_attention_bkgsd(q, k, v, causal=causal, window=window)
-    bq, bk = fa.kernel_tiles(G, Sq, Sk, torch.float32)
+    bq, bk = fa.kernel_tiles(Sq, Sk, torch.float32)
     plain = fa.flash_attention_bkgsd_plain(q, k, v, causal=causal,
                                            window=window, blk_q=bq, blk_k=bk)
     torch.cuda.synchronize()
