@@ -61,7 +61,21 @@ def test_port_file_list_is_complete():
                      "experiments/smoke.py", "experiments/cells/__init__.py",
                      "experiments/cells/elastic_churn.py",
                      "experiments/cells/topology_scaling.py",
-                     "experiments/cells/train_while_serve.py"):
+                     "experiments/cells/train_while_serve.py",
+                     "experiments/cells/fig4_staleness.py",
+                     "experiments/cells/table1_overlap.py",
+                     "experiments/cells/fig8_speedup.py",
+                     "experiments/cells/fig5_lr_modulation.py",
+                     "experiments/cells/fig6_7_tradeoff.py",
+                     "experiments/cells/table2_mu_lambda.py",
+                     "experiments/cells/baselines.py",
+                     "experiments/cells/table3_4_summary.py",
+                     "experiments/cells/sim_engine_bench.py",
+                     "experiments/cells/kernel_bench.py",
+                     "experiments/cells/bench_guard.py",
+                     "experiments/cells/smoke_cells.py",
+                     "launch/__init__.py", "launch/roofline.py",
+                     "experiments/bench_guard.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",
