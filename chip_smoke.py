@@ -183,20 +183,49 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    fails too (``RED_IN_REFERENCE``, ROADMAP.md §3) and which is held
    equal to the CPU run's; then the ``smoke`` campaign twice, the second
    pass all cache hits.  Seconds, events/s or updates/s and launches per
-   cell.
+   cell.  (``bench_guard`` runs in phase 13, after the cell it measures.)
+13. The ``ring`` cell, SPMD placement, the ``distributed`` cell.  ``ring``
+   through ``campaign.run_cell``: its ``configs_table`` and ``analytic``
+   equal to the reference's envelope, its two children (the stock lane at
+   D₀ = 10 000 004, the what-if lane at 100 007 936 on the bf16 ring)
+   under a 6 GiB device-memory cap infeasible and feasible as in the
+   envelope, ``demonstrated_gain`` ">=10x", both claims ok; each child's
+   peak bytes and bytes/param printed.  13b: SPMD replay
+   (``placement="spmd"``) against the single placement at S = 1, 2, 4,
+   in one world of 4 gloo ranks (``launch.mesh.shard_map``; every rank
+   on the card, the collectives on host tensors), on ``mlp_teacher`` (D
+   2 762; c = 4: L = 4, 2, 1) with ``ring_impl`` "pallas" (one
+   ``ring_apply`` per rank and event), its ppermute assembly, "fused",
+   the bf16 ring and the sequential mode, and on the what-if quadratic (D
+   1 000 003; L = 1: one ``ring_apply_whatif`` per PS rank and event) at
+   "pallas", bf16 and "fused": each rank's launches zeroed just before a
+   case and read just after, equal to one per event on every rank of the
+   mesh; what-if ≡ single bitwise, ppermute ≡ all_gather bitwise, the
+   staged cases within ``SPMD_ATOL`` (1e-5) of single; then once through
+   ``driver.run`` with ``placement="spmd"`` (S = 2, L = 2: the replay
+   spawns its own world; 96 ``ring_apply`` launches, 24 per rank, counted
+   back in this process).  Then the ``distributed`` cell at its defaults
+   (worlds of 1, 2 and 4 ranks; claims ok; updates/s, ranks, cpu_count
+   and the card printed), ``table3_4`` at its quick budget with its five
+   deps' card envelopes (phases 11–13) beside it (claims ok, every dep
+   folded, ``ps_apply`` launches as reckoned: 10 122) and ``bench_guard``
+   (all seven floors hold; at 100 times them, they trip).
 
 Launch counts are zeroed just before each main-path phase (4, 4b, 5, 5b,
-5c, 6, each run of phases 8–10 and each cell of phases 11 and 12) and
-read just after it; they must equal the update counts (phases 8–10: one
+5c, 6, each run of phases 8–10, each cell of phases 11–13 and each SPMD
+case of phase 13, in every rank) and read just after it; they must equal the update counts (phases 8–10: one
 kernel launch per attention, mamba or rwkv layer of a prefill forward,
 none in decode); flash launches are also counted per kernel
 (``flash_sm90``, ``flash_tf32x3``).  The ``kernels`` line adds every
-phase-12 cell's launches but the ``kernels`` cell's, which holds each
-kernel against a plain chain.
+phase-12 and phase-13 cell's launches but the ``kernels`` cell's, which
+holds each kernel against a plain chain, and phase 13's SPMD launches
+summed over ranks (the ``ring`` cell's children count their own).
 
-Time budget: the whole script stays under 700 s, well inside a 900 s
-limit: it took 458.8–464.8 s, phase 12 238.4–252.2 s of it (card runs and
-CPU twins), on one NVIDIA H100 80GB HBM3, 700.00 W.
+Time budget: the whole script aims to stay under 700 s, well inside a
+900 s limit: it took 593.8 s on one NVIDIA H100 80GB HBM3, 700.00 W
+(phase 12 265.6 s, card runs and CPU twins; phase 13 105.7 s).  Its time
+follows the host: on a slower host it took 717.4 s (phase 12 347.7 s,
+with phase 13b's worlds still one per S).
 """
 
 import dataclasses
@@ -1824,10 +1853,12 @@ def schedule_side(rec):
     return side
 
 
-def phase_cells(dev, launches):
+def phase_cells(dev, launches, keep):
     """Phase 11: the elastic, topology and serve cells through
     ``campaign.run_cell`` at their default params, each record held
-    against the reference's committed envelope."""
+    against the reference's committed envelope; their card envelopes are
+    copied to ``keep`` (phase 13's table3_4 folds them)."""
+    import shutil
     import tempfile
     from repro_torch.experiments import campaign, registry
     out = {}
@@ -1842,6 +1873,7 @@ def phase_cells(dev, launches):
             derived, secs, counts = counted(lambda: campaign.run_cell(
                 name, results_dir=str(card_dir), device=dev))
             env = registry.load_envelope(cell, str(card_dir))
+            shutil.copy(registry.results_path(cell, str(card_dir)), keep)
             cpu_metrics, cpu_paths, cpu_secs = {}, {}, None
             if name != "topology":          # topology's records: measure
                 t0 = time.perf_counter()
@@ -1937,9 +1969,10 @@ ANALYTIC_CELLS = ("table1", "fig8")
 REPLAY_CELLS = ("fig5", "fig6_7", "table2")
 LEGACY_CELLS = ("baselines", "table3_4")
 TIMING_CELLS = ("sim_engine", "kernels", "bench_guard")
-# run order: sim_engine before table3_4, whose summary folds it in
+# run order: sim_engine before table3_4, whose summary folds it in;
+# bench_guard runs in phase 13, after the distributed cell it measures too
 PHASE12_CELLS = ANALYTIC_CELLS + ("fig4",) + REPLAY_CELLS + (
-    "baselines", "sim_engine", "table3_4", "kernels", "bench_guard")
+    "baselines", "sim_engine", "table3_4", "kernels")
 # the parts of table3_4's derived that its simulations make (the rest is
 # folded in from whatever dep envelopes the results directory holds)
 TABLE3_4_OWN = ("table3", "table3_best", "table4")
@@ -2073,9 +2106,11 @@ def replay_events(env) -> int:
                if r["runtime"]["replay_path"] != "measure")
 
 
-def phase_paper_cells(dev, launches):
+def phase_paper_cells(dev, launches, keep):
     """Phase 12: the rest of the paper campaign and the smoke campaign
-    through ``campaign.run_cell`` on the card (see the module docstring)."""
+    through ``campaign.run_cell`` on the card (see the module docstring);
+    sim_engine's card envelope is copied to ``keep``."""
+    import shutil
     import tempfile
 
     from repro_torch.experiments import campaign, registry
@@ -2099,6 +2134,9 @@ def phase_paper_cells(dev, launches):
             cell = registry.get_cell(name)
             if name in TIMING_CELLS:
                 timing_cell(name, on_card, launches, bench_guard)
+                if name == "sim_engine":
+                    shutil.copy(registry.results_path(
+                        cell, str(Path(tmp) / "card")), keep)
                 continue
             ref = json.loads((ROOT / "benchmarks" / "results"
                               / f"{cell.result}.json").read_text())
@@ -2204,12 +2242,14 @@ def timing_cell(name, on_card, launches, bench_guard):
         tripped = [r["metric"] for r in bench_guard.check(
             m, d["floor"], 100.0) if not r["ok"]]
         if not tripped:
-            raise AssertionError("phase 12 bench_guard: nothing trips at "
+            raise AssertionError("bench_guard: nothing trips at "
                                  "--floor-scale 100")
-        log(f"  bench_guard: every floor holds at scale 1 ("
+        if set(m) != set(bench_guard.FLOOR_MARGINS):
+            raise AssertionError(f"phase 13 bench_guard measured {sorted(m)}"
+                                 f", not every guarded metric")
+        log(f"  bench_guard: all {len(m)} floors hold at scale 1 ("
             + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
-            + f"); at --floor-scale 100 {len(tripped)} of {len(m)} trip; "
-            f"absent: {sorted(d['absent'])}")
+            + f"); at --floor-scale 100 {len(tripped)} of {len(m)} trip")
     else:
         mk, ps = d["replay_megakernel"], d["ps_update_timed"]
         log(f"  kernels: ring_apply event {mk['megakernel_us']:.1f} us, "
@@ -2221,6 +2261,265 @@ def timing_cell(name, on_card, launches, bench_guard):
             launches[k] += counts[k]
     log(f"  {name}: {secs:.1f} s; claims {claims}; launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the ring cell, SPMD placement, the distributed cell
+# ---------------------------------------------------------------------------
+# DESIGN.md §13's tolerance for the staged SPMD bodies against the single
+# placement (with L > 1 the learner ranks' partial sums reorder the fp32
+# combine); what-if SPMD and the ppermute assembly are held bitwise
+SPMD_ATOL = 1e-5
+SPMD_WORLD = 4                 # ranks of each world: S·L with c = 4 slots
+SPMD_STEPS = 24
+SPMD_SHARDS = (1, 2, 4)
+WHATIF_SPMD_D = 1_000_003      # ragged: S = 4 slices of 250 001
+# name → (problem, RunConfig overrides, spmd_assembly); the mlp cases run
+# mlp_teacher at its paper width (D 2 762)
+SPMD_CASES = {
+    "mlp_kernel": ("mlp", dict(ring_impl="pallas"), "all_gather"),
+    "mlp_kernel_ppermute": ("mlp", dict(ring_impl="pallas"), "ppermute"),
+    "mlp_fused": ("mlp", dict(ring_impl="fused"), "all_gather"),
+    "mlp_kernel_bf16": ("mlp", dict(ring_impl="pallas", ring_dtype="bf16"),
+                        "all_gather"),
+    "mlp_kernel_sequential": ("mlp", dict(ring_impl="pallas",
+                                          lr_policy="per_gradient"),
+                              "all_gather"),
+    "whatif_kernel": ("whatif", dict(ring_impl="pallas"), "all_gather"),
+    "whatif_kernel_bf16": ("whatif", dict(ring_impl="pallas",
+                                          ring_dtype="bf16"), "all_gather"),
+    "whatif_fused": ("whatif", dict(ring_impl="fused"), "all_gather"),
+}
+# the cells' own checks: table3_4 at its quick budget (its default takes
+# 70-76 s on the card, phase 12 runs it there); its deps' envelopes come
+# from phases 11-13
+TABLE3_4_DEPS = {"topology": "topology_scaling", "elastic": "elastic_churn",
+                 "serve": "train_while_serve",
+                 "distributed": "distributed_replay",
+                 "sim_engine": "sim_engine"}
+
+
+def spmd_run_config(shards, overrides):
+    from repro_torch.config import RunConfig
+    kw = dict(protocol="softsync", n_softsync=4, n_learners=16, minibatch=4,
+              base_lr=0.05, lr_policy="staleness_inverse",
+              optimizer="momentum", seed=7, shards=shards)
+    kw.update(overrides)
+    return RunConfig(**kw)
+
+
+def spmd_case(name, shards, placement, dev):
+    """One SPMD_CASES replay on ``dev`` at ``placement``."""
+    from repro_torch.core import replay
+    from repro_torch.core.trace import schedule_cached
+    from repro_torch.experiments.problems import MLPProblem, QuadraticProblem
+    problem, overrides, assembly = SPMD_CASES[name]
+    cfg = spmd_run_config(shards, overrides)
+    trace = schedule_cached(cfg, SPMD_STEPS)
+    prob = (MLPProblem() if problem == "mlp"
+            else QuadraticProblem(d=WHATIF_SPMD_D))
+    kw = dict(grad_fn=prob.grad_fn, init_params=prob.init(dev),
+              batches=prob.stage_minibatches(trace.learner, trace.mb_index,
+                                             cfg.minibatch), device=dev)
+    if problem == "whatif":
+        kw["flat_grad"] = prob.flat_grad(dev)
+    if placement == "spmd":
+        kw["spmd_assembly"] = assembly
+    return replay(trace, cfg, placement=placement, **kw)
+
+
+def spmd_world(device):
+    """A rank of phase 13b's world: every SPMD case at every shard count.
+    Each rank zeroes its launch counts just before a case and reads them
+    just after; rank 0 gets every rank's counts, its seconds and the
+    parameters."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import replay_ring
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+    for shards in SPMD_SHARDS:
+        for name in SPMD_CASES:
+            sync()
+            replay_ring.reset_launches()
+            t0 = time.perf_counter()
+            res = spmd_case(name, shards, "spmd", dev)
+            sync()
+            secs = time.perf_counter() - t0
+            counts = [None] * dist.get_world_size()
+            dist.all_gather_object(counts, dict(replay_ring.launches))
+            out[shards, name] = (None if res is None else
+                                 {k: v.cpu() for k, v in res.params.items()},
+                                 counts, secs)
+    return out
+
+
+def params_close(a, b, atol, what) -> float:
+    worst = max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a)
+    if not worst <= atol:
+        raise AssertionError(f"{what}: max |spmd - single| {worst} > {atol}")
+    return worst
+
+
+def spmd_expected(name, shards):
+    """Per-rank launches of a case: every rank on the mesh applies its
+    slice once per event (the learner ranks of a shard hold copies of its
+    slice); the what-if body runs on S ranks, the fused one launches
+    nothing."""
+    problem, overrides, _ = SPMD_CASES[name]
+    if overrides["ring_impl"] == "fused":
+        return [{"ring_apply": 0, "ring_apply_whatif": 0}] * SPMD_WORLD
+    if problem == "whatif":
+        return ([{"ring_apply": 0, "ring_apply_whatif": SPMD_STEPS}] * shards
+                + [{"ring_apply": 0, "ring_apply_whatif": 0}]
+                * (SPMD_WORLD - shards))
+    return [{"ring_apply": SPMD_STEPS, "ring_apply_whatif": 0}] * SPMD_WORLD
+
+
+def phase_spmd(dev, launches):
+    """Phase 13b: SPMD replay on the card against the single placement at
+    S = 1, 2, 4 (one world of SPMD_WORLD ranks), then once through
+    ``driver.run`` with ``placement="spmd"`` (the replay spawns its own
+    world)."""
+    import dataclasses as dc
+
+    from repro_torch.experiments import ExperimentSpec, run
+    from repro_torch.launch import mesh
+    mesh.ensure_host_devices(SPMD_WORLD)
+    t0 = time.perf_counter()
+    got = mesh.shard_map(spmd_world, SPMD_WORLD, str(dev))
+    log(f"  one world of {SPMD_WORLD} ranks, every case at S = "
+        f"{SPMD_SHARDS}: {time.perf_counter() - t0:.1f} s with its start")
+    for shards in SPMD_SHARDS:
+        rows = []
+        for name in SPMD_CASES:
+            params, counts, secs = got[shards, name]
+            want = spmd_expected(name, shards)
+            if counts != want:
+                raise AssertionError(f"phase 13 spmd S={shards} {name}: "
+                                     f"launches per rank {counts}, expected "
+                                     f"{want}")
+            for c in counts:
+                for k in ("ring_apply", "ring_apply_whatif"):
+                    launches[k] += c[k]
+            single = spmd_case(name, shards, "single", dev).params
+            what = f"phase 13 spmd S={shards} {name}"
+            if name.startswith("whatif"):
+                params_bitwise(params, {k: v.cpu() for k, v in
+                                        single.items()}, what)
+                diff = "bitwise"
+            else:
+                diff = f"{params_close(params, single, SPMD_ATOL, what):.3g}"
+            if name == "mlp_kernel_ppermute":
+                params_bitwise(params, got[shards, "mlp_kernel"][0],
+                               f"{what} against all_gather")
+                diff += ", bitwise all_gather's"
+            per_rank = [c["ring_apply"] + c["ring_apply_whatif"]
+                        for c in counts]
+            rows.append(f"{name} {secs:.2f} s, {SPMD_STEPS / secs:.1f} "
+                        f"updates/s, launches per rank {per_rank}, "
+                        f"|spmd - single| {diff}")
+        log(f"  S={shards}:")
+        for r in rows:
+            log(f"    {r}")
+
+    # the user's entry: driver.run spawns the replay's own world
+    base = ExperimentSpec(run=spmd_run_config(2, dict(ring_impl="pallas")),
+                          problem="mlp_teacher", steps=SPMD_STEPS,
+                          eval_every=8)
+    spmd_spec = dc.replace(base, run=base.run.replace(placement="spmd"))
+    res, secs, counts = counted(lambda: run(spmd_spec, device=dev))
+    single = run(base, device=dev)
+    from repro_torch.kernels import replay_ring
+    expect(counts, "phase 13 driver.run spmd",
+           ring_apply=SPMD_WORLD * SPMD_STEPS)
+    launches["ring_apply"] += counts["ring_apply"]
+    params_close(res.params, single.params, SPMD_ATOL,
+                 "phase 13 driver.run spmd")
+    if abs(res.metrics["test_error"] - single.metrics["test_error"]) > \
+            CARD_VS_CPU_TOL or [r["update"] for r in res.curve] != [8, 16, 24]:
+        raise AssertionError(f"phase 13 driver.run spmd: {res.metrics}, "
+                             f"{res.curve} against {single.metrics}")
+    log(f"  driver.run placement='spmd' (S=2, L=2, ring_impl='pallas'): "
+        f"{secs:.1f} s with its world's start; ring_apply per rank "
+        f"{[c['ring_apply'] for c in replay_ring.rank_launches]}; "
+        f"test_error {res.metrics['test_error']} (single "
+        f"{single.metrics['test_error']})")
+
+
+def phase_ring_distributed(dev, launches, keep):
+    """Phase 13: the ring cell, SPMD placement on the card, the
+    distributed cell, table3_4 with all five deps, bench_guard (see the
+    module docstring)."""
+    from repro_torch.experiments import campaign, registry
+    from repro_torch.experiments.cells import bench_guard, ring_feasibility
+
+    def on_card(name, **kw):
+        _, secs, counts = counted(lambda: campaign.run_cell(
+            name, results_dir=str(keep), device=dev, **kw))
+        return registry.load_envelope(name, str(keep)), secs, counts
+
+    # 13a: the ring cell, held to the reference's envelope
+    ref = json.loads((ROOT / "benchmarks" / "results"
+                      / "ring_feasibility.json").read_text())["derived"]
+    env, secs, _ = on_card("ring")
+    d = json.loads(json.dumps(env["derived"]))
+    for k in ("configs_table", "analytic"):
+        if d[k] != ref[k]:
+            raise AssertionError(f"phase 13 ring: {k} differs from the "
+                                 f"envelope's")
+    trials = d["rlimit_demo"]["trials"]
+    if [t["feasible"] for t in trials] != [
+            t["feasible"] for t in ref["rlimit_demo"]["trials"]] or \
+            d["rlimit_demo"]["demonstrated_gain"] != ">=10x" or \
+            not all(c["ok"] for c in env["campaign"]["claims"].values()):
+        raise AssertionError(f"phase 13 ring: {d['rlimit_demo']}, claims "
+                             f"{env['campaign']['claims']}")
+    log(f"  ring: {secs:.1f} s; configs_table and analytic equal to the "
+        f"envelope's; cap {trials[0]['cap_bytes']} bytes "
+        f"({d['rlimit_demo']['cap_gb']} GiB of device memory); claims ok")
+    for t in trials:
+        peak = ring_feasibility.peak_bytes(t)
+        log(f"    {t['label']} D={t['d']}: "
+            + (f"feasible, peak {peak} bytes = {peak / t['d']:.2f} B/param"
+               if t["feasible"] else f"infeasible: {t['detail']}"))
+
+    log("phase 13b: SPMD replay on the card against the single placement")
+    t0 = time.perf_counter()
+    phase_spmd(dev, launches)
+    log(f"  phase 13b in {time.perf_counter() - t0:.1f} s")
+
+    env, secs, counts = on_card("distributed")
+    expect(counts, "phase 13 distributed")       # ring_impl="fused"
+    claims = held_claims("distributed", env)
+    d = env["derived"]
+    log(f"  distributed: {secs:.1f} s; claims {claims}; updates/s "
+        + ", ".join(f"{k} {v:.1f} ({d['ranks'][k]} ranks)"
+                    for k, v in d["updates_per_s"].items())
+        + f"; scaling_s4_over_s1 {d['scaling_s4_over_s1']:.3f}; devices "
+        f"{d['devices']}, cpu_count {d['cpu_count']}, card {d['card']}")
+
+    # table3_4 again, now with its five deps' envelopes beside it
+    cell = registry.get_cell("table3_4")
+    if cell.deps != tuple(TABLE3_4_DEPS):
+        raise AssertionError(f"table3_4 deps {cell.deps}")
+    env, secs, counts = on_card("table3_4", quick=True)
+    claims = held_claims("table3_4", env)
+    missing = [k for k in TABLE3_4_DEPS.values() if k not in env["derived"]]
+    want = sys.modules[cell.compute.__module__].ps_updates(
+        **cell.resolved_params(quick=True))
+    expect(counts, "phase 13 table3_4", ps_apply=want)
+    launches["ps_apply"] += counts["ps_apply"]
+    if missing:
+        raise AssertionError(f"phase 13 table3_4: deps not folded {missing}")
+    log(f"  table3_4 (quick, epochs 3): {secs:.1f} s; claims {claims}; "
+        f"all five deps folded; ps_apply {counts['ps_apply']} (reckoned "
+        f"{want})")
+
+    timing_cell("bench_guard", on_card, launches, bench_guard)
 
 
 def main() -> int:
@@ -2337,19 +2636,27 @@ def main() -> int:
         phase_serving(phase, arch, fp32_limit, dev, launches)
         log(f"  phase {phase} in {time.perf_counter() - tp:.1f} s")
 
-    log("phase 11: the paper cells elastic, topology and serve at their "
-        "default params through campaign.run_cell, against "
-        "benchmarks/results/*.json")
-    t11 = time.perf_counter()
-    phase_cells(dev, launches)
-    log(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
-    log("phase 12: the rest of the paper campaign (table1, fig8, fig4, "
-        "fig5, fig6_7, table2, baselines, sim_engine, table3_4, kernels, "
-        "bench_guard) and the smoke campaign through campaign.run_cell, "
-        "against benchmarks/results/*.json and the same cells on the CPU")
-    t12 = time.perf_counter()
-    phase_paper_cells(dev, launches)
-    log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="results_torch_") as keep:
+        log("phase 11: the paper cells elastic, topology and serve at "
+            "their default params through campaign.run_cell, against "
+            "benchmarks/results/*.json")
+        t11 = time.perf_counter()
+        phase_cells(dev, launches, keep)
+        log(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
+        log("phase 12: the rest of the paper campaign (table1, fig8, fig4, "
+            "fig5, fig6_7, table2, baselines, sim_engine, table3_4, "
+            "kernels) and the smoke campaign through campaign.run_cell, "
+            "against benchmarks/results/*.json and the same cells on the "
+            "CPU")
+        t12 = time.perf_counter()
+        phase_paper_cells(dev, launches, keep)
+        log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
+        log("phase 13: the ring cell, SPMD placement, the distributed "
+            "cell, table3_4 with five deps and bench_guard")
+        t13 = time.perf_counter()
+        phase_ring_distributed(dev, launches, Path(keep))
+        log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
 
     kernels = []
     ring_src = "src/repro_torch/kernels/csrc/replay_ring.cu"

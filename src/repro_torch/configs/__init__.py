@@ -14,19 +14,23 @@ from typing import Dict, List
 
 from repro_torch.config import ModelConfig
 
-# Only the architectures the port serves so far; the rest of the reference's
-# registry (repro/configs) ports with the model stack (ROADMAP.md queue 1
-# item 10).  qwen2_1_5b also sizes the what-if problem
-# (QuadraticProblem(arch=)).
 ARCH_IDS: List[str] = [
-    "qwen2_1_5b",
-    "zamba2_7b",
+    "internvl2_2b",
+    "hubert_xlarge",
     "rwkv6_7b",
+    "qwen3_14b",
+    "starcoder2_7b",
+    "zamba2_7b",
+    "llama4_maverick_400b_a17b",
+    "qwen2_1_5b",
+    "llama3_405b",
+    "arctic_480b",
 ]
 
 # CLI aliases with dashes/dots
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 ALIASES["qwen2-1.5b"] = "qwen2_1_5b"
+ALIASES["llama4-maverick-400b-a17b"] = "llama4_maverick_400b_a17b"
 
 
 def _resolve(name: str) -> str:

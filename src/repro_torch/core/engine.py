@@ -57,7 +57,19 @@ segment ends and in the serving evaluation after the loop.
 ring: one ``grad_fn`` call over B·c slots per event, then one
 ``ring_apply`` launch per lane on its contiguous ring view.
 
-Not ported: ``placement="spmd"`` (ROADMAP.md queue 1 item 8).
+``placement="spmd"`` (DESIGN.md §13) replays the trace on a mesh of
+``torch.distributed`` ranks (``launch/mesh.py``): each "ps" rank owns one
+(K, ⌈D/S⌉) ring slice, each "learner" rank a block of every event's slots.
+Per event the PS ranks gather their own rows at their own timestamps and
+assemble the pulled weights over "ps" (all_gather, or the neighbor ring
+at ``spmd_assembly="ppermute"``); the learner ranks push their block's
+partial combine through one all_reduce over "learner" (sequential mode
+gathers the slot gradients instead); each PS rank applies the ring body to
+its own slice — one ``ring_apply`` / ``ring_apply_whatif`` launch per
+rank and event at ``ring_impl="pallas"``/``"auto"`` on the card.  The
+what-if body plans one learner and runs no collective per event.  Rank 0
+assembles the parameters and returns the single placement's
+:class:`SimResult`.
 """
 
 from __future__ import annotations
@@ -73,13 +85,17 @@ from repro_torch.core.lr_policies import resolve_trace_lrs
 from repro_torch.core.protocols import init_ps_state
 from repro_torch.core.simulator import SimResult, on_device
 from repro_torch.core.topology import Topology
-from repro_torch.core.trace import ArrivalTrace
+from repro_torch.core.trace import ArrivalTrace, PlacementPlan, placement_plan
 from repro_torch.kernels import replay_ring
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as sharding_lib
 from repro_torch.optim import backends, flatten
 from repro_torch.optim.flatten import tree_map
 
 # requests evaluated per batched call of the serving lane
 SERVE_CHUNK = 512
+# how the pulled weights are assembled over "ps" in the SPMD replay
+SPMD_ASSEMBLIES = ("all_gather", "ppermute")
 
 
 def resolve_device(device) -> torch.device:
@@ -95,12 +111,6 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r}: expected "
                          f"'cuda' or 'cpu'")
     return dev
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
-        f"item {item}); run it on the reference package repro")
 
 
 def _index(tree, j):
@@ -159,13 +169,6 @@ def _check_trace(trace: ArrivalTrace, run: RunConfig) -> None:
             f"serving lane but run.serving is "
             f"{'unset' if run.serving is None else 'set'} — reschedule the "
             f"trace for this config")
-
-
-def _check_ported(run: RunConfig) -> None:
-    """Raise NotImplementedError for the part of the reference's replay
-    that the port does not run yet."""
-    if run.placement == "spmd":
-        raise _not_ported("placement='spmd'", "8")
 
 
 def _trace_xs(trace: ArrivalTrace, K: int, device: torch.device,
@@ -291,6 +294,8 @@ def replay(trace: ArrivalTrace, run: RunConfig, *,
            eval_fn: Optional[Callable] = None,
            eval_every: int = 0,
            flat_grad=None,
+           placement: Optional[str] = None,
+           spmd_assembly: str = "all_gather",
            serve_batches=None,
            serve_eval_fn: Optional[Callable] = None,
            device="cuda") -> SimResult:
@@ -319,6 +324,15 @@ def replay(trace: ArrivalTrace, run: RunConfig, *,
 
     With ``eval_every`` set, ``eval_fn(params) -> dict`` runs after every
     full segment of that many events (the only host syncs of the loop).
+
+    ``placement`` (default ``run.placement``): ``"single"`` replays on
+    ``device``; ``"spmd"`` on a ``make_sim_mesh(S, L)`` mesh of spawned
+    ranks (see the module docstring; ``grad_fn``, ``eval_fn`` and the data
+    must pickle).  What-if SPMD replay is bitwise the single placement's;
+    ``spmd_assembly="ppermute"`` is bitwise ``"all_gather"``; the staged
+    bodies agree within ``atol`` 1e-5 (DESIGN.md §13).  Inside a rank of a
+    ``mesh.shard_map`` world, every rank makes the same call and rank 0
+    gets the result (the others None).
     """
     dev = resolve_device(device)
     _check_trace(trace, run)
@@ -337,7 +351,16 @@ def replay(trace: ArrivalTrace, run: RunConfig, *,
             f"elastic traces replay in 'combine' mode only (cancelled "
             f"slots fold with coefficient 0; sequential optimizer events "
             f"cannot be masked), got mode={trace.mode!r}")
-    _check_ported(run)
+    place = placement if placement is not None else run.placement
+    if place == "spmd":
+        return _replay_spmd(trace, run, spec=spec, grad_fn=grad_fn,
+                            init_params=init_params, batch_fn=batch_fn,
+                            batches=batches, eval_fn=eval_fn,
+                            eval_every=eval_every, flat_grad=flat_grad,
+                            assembly=spmd_assembly, device=dev)
+    if place != "single":
+        raise ValueError(f"unknown placement {place!r}: expected "
+                         f"'single' or 'spmd'")
     impl = backends.resolve_ring_impl(run.ring_impl, spec)
     mode = trace.mode
     whatif = (flat_grad is not None and impl != "stock" and mode == "combine"
@@ -497,6 +520,302 @@ def replay(trace: ArrivalTrace, run: RunConfig, *,
     return SimResult(trace.clock_log(), steps, trace.simulated_time,
                      trace.minibatches, params_of(steps), history,
                      serving=serve_result)
+
+
+# ---------------------------------------------------------------------------
+# SPMD placement (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+def _spmd_local_width(D: int, shards: int) -> int:
+    """Per-"ps"-rank ring row width: the shard slice Dp = ⌈D/S⌉.  (The
+    reference pads it to its Pallas tile multiple; the port's kernels mask
+    the ragged edge, so every body takes Dp.)"""
+    return -(-D // shards)
+
+
+def _make_spmd_scan_fn(grad_fn, spec, mode: str, c: int, layout,
+                       plan: PlacementPlan, mesh, xs: dict, *,
+                       group_size: int = 1, ring_impl: str = "fused",
+                       whatif: bool = False, assembly: str = "all_gather",
+                       aux=None) -> Callable:
+    """This rank's replay loop on the ``(ps, learner)`` mesh — the
+    distributed twin of :func:`replay`'s event loop (DESIGN.md §13).
+    Returns ``run(carry, lo, hi)``, which applies events lo … hi − 1 to
+    the rank's (ring, state, residue) slice in place.
+
+    Rank (s, l) owns PS shard s's (K, Wl) ring slice and the slot block
+    [l·cl, (l + 1)·cl).  Per event:
+
+    * **pull** — gather this block's rows of the own slice at the own
+      shard's timestamps (``sts[:, :, s]``), then assemble the (cl, D)
+      pulled weights over "ps" (``backends.all_gather``, or the bitwise-
+      equal neighbor ring ``backends.ring_all_gather`` at
+      ``assembly="ppermute"``);
+    * **push** — the block's gradients, as :func:`replay` computes them;
+      combine mode folds the block's partial of ĝ = Σ coefⱼ·gⱼ with one
+      all_reduce over "learner" (``backends.combine_spmd``), sequential
+      mode gathers every slot's gradient over "learner";
+    * **update** — the ring body on the own slice of ĝ (or of the c
+      gradients): one ``ring_apply`` launch at ``ring_impl="kernel"``.
+
+    The what-if body (L = 1) forms gⱼ = a ⊙ (ring[tsⱼ] − w*) on the own
+    slice (one ``ring_apply_whatif`` launch at ``"kernel"``): shard-local,
+    no collective, bitwise the single placement's event on those columns.
+    """
+    S, L = plan.shards, plan.learners
+    cl = c // L
+    D = layout.total
+    Dp = -(-D // S)
+    si = mesh.axis_index("ps")
+    lo_slot = mesh.axis_index("learner") * cl
+    block = slice(lo_slot, lo_slot + cl)
+    dev = xs["lrs"].device
+    static_coef = torch.full((c,), 1.0 / c, dtype=torch.float32, device=dev)
+    ones = torch.ones(1, dtype=torch.float32, device=dev)
+    gather = (backends.ring_all_gather if assembly == "ppermute"
+              else backends.all_gather)
+
+    def pulled_weights(rl, j: int) -> torch.Tensor:
+        """(cl, D) fp32 weights of this rank's slot block at event j."""
+        mine = rl.index_select(0, xs["pts"][j])[:, :Dp].to(torch.float32)
+        parts = gather(mine, mesh, "ps")                    # (S, cl, Dp)
+        return parts.movedim(0, 1).reshape(cl, S * Dp)[:, :D]
+
+    def local_gradients(w: torch.Tensor, j: int) -> torch.Tensor:
+        """(cl, D) fp32 gradients of the block — :func:`replay`'s
+        ``gradients`` on the block's slots."""
+        batch = _index(xs["batch"], j)
+        if group_size == 1:
+            return flatten.batched_tree_to_flat(
+                grad_fn(flatten.batched_flat_to_tree(w, layout), batch))
+        rep = w.repeat_interleave(group_size, dim=0)
+        g = flatten.batched_tree_to_flat(grad_fn(
+            flatten.batched_flat_to_tree(rep, layout),
+            tree_map(lambda t: t.reshape((cl * group_size,) + t.shape[2:]),
+                     batch))).view(cl, group_size, D)
+        if "mcoef" in xs:
+            return (g * xs["mcoef"][j][block, :, None]).sum(dim=1)
+        return g.mean(dim=1)
+
+    def shard_slice(vec: torch.Tensor) -> torch.Tensor:
+        """(…, D) → this PS rank's (…, Dp) columns (the last shard
+        zero-padded, the flat ring's layout)."""
+        return flatten.pad_flat(vec, S * Dp)[..., si * Dp:(si + 1) * Dp]
+
+    def event(carry, j: int) -> None:
+        rl, sl, resl = carry
+        idx, lrs = xs["idx"][j], xs["lrs"][j]
+        coef = xs["coef"][j] if "coef" in xs else static_coef
+        if whatif:
+            widx = xs["widx"][j]
+            if ring_impl == "kernel":
+                replay_ring.ring_apply_whatif(rl, sl, resl, aux[0], aux[1],
+                                              coef, lrs, widx, spec=spec)
+            else:
+                backends.apply_event_ring_whatif(
+                    spec, rl, sl, resl, aux[0], aux[1], widx[2:], coef, lrs,
+                    widx[0], widx[1])
+            return
+        g = local_gradients(pulled_weights(rl, j), j)
+        if mode == "combine":
+            ghat = backends.combine_spmd(g, coef[block], mesh, "learner")
+            gp, cvec, lvec = shard_slice(ghat)[None], ones, lrs[:1]
+        else:
+            g_all = backends.all_gather(g, mesh, "learner").reshape(c, D)
+            gp, cvec, lvec = shard_slice(g_all), coef, lrs
+        _ring_event(ring_impl, spec, rl, sl, resl, gp.contiguous(), cvec,
+                    lvec, idx, None, mode)
+
+    def run(carry, lo: int, hi: int) -> None:
+        for j in range(lo, hi):
+            event(carry, j)
+
+    return run
+
+
+def _spmd_rank_xs(trace: ArrivalTrace, K: int, plan: PlacementPlan, mesh,
+                  dev: torch.device, batches, whatif: bool) -> dict:
+    """This rank's trace inputs (``_trace_xs`` cut by
+    ``sharding.spmd_xs_specs``): the replicated per-event tensors, its
+    shard's column of ``sts`` as the pulled rows of its slot block
+    (``pts``) and the what-if index rows [prev, slot, ts…] (``widx``), and
+    its block of the minibatches."""
+    xs = _trace_xs(trace, K, dev, None, None)
+    specs = sharding_lib.spmd_xs_specs(("sts", "batch"))
+    sts = xs.pop("sts") if "sts" in xs else xs["ts"][:, :, None]
+    col = sharding_lib.local_block(sts, specs["sts"], mesh)[:, :, 0]
+    if whatif:
+        xs["widx"] = torch.cat([xs["idx"][:, :2], col.to(torch.int32)],
+                               dim=1).contiguous()
+    else:
+        cl = plan.slot_block
+        lo = mesh.axis_index("learner") * cl
+        xs["pts"] = col[:, lo:lo + cl].to(torch.int64).contiguous()
+        xs["batch"] = on_device(sharding_lib.local_block(
+            batches, specs["batch"], mesh), dev)
+    return xs
+
+
+def _replay_spmd_rank(trace: ArrivalTrace, run: RunConfig, plan, *,
+                      grad_fn, init_params, batches, eval_fn, eval_every,
+                      flat_grad, impl: str, whatif: bool, assembly: str,
+                      dev: torch.device) -> Optional[SimResult]:
+    """One rank's share of the SPMD replay: build its carry slice and
+    inputs, run the loop, and assemble the parameters (and the eval
+    history) on rank 0.  Collective over the world."""
+    mesh = mesh_lib.make_sim_mesh(plan.shards, plan.learners)
+    if not mesh.active:
+        return None
+    steps, c = trace.steps, trace.c
+    K = trace.max_staleness + 1
+    S = plan.shards
+    params0 = {k: v.to(dev) for k, v in init_params.items()}
+    spec, opt_state = init_ps_state(run, params0)
+    layout = flatten.layout_of(params0)
+    flat0 = flatten.tree_to_flat(params0)
+    D = flat0.shape[0]
+    Dp = trace.topology.padded_width(D)
+    Wl = _spmd_local_width(D, S)
+    ef = run.ring_dtype == "bf16"
+    carry_spec = sharding_lib.spmd_carry_specs()[0]
+
+    def own(vec):                   # (D,) → this rank's (Wl,) slice
+        packed = flatten.pad_flat(flatten.shard_pack(vec, S, Dp), Wl)
+        return sharding_lib.local_block(packed, carry_spec, mesh)[0]
+
+    row0 = own(flat0)
+    q0 = row0.to(torch.bfloat16 if ef else torch.float32)
+    ring = q0[None].expand(K, Wl).contiguous()
+    res = (row0 - q0.to(torch.float32)) if ef else None
+    s = None
+    if spec.state_keys:
+        s = own(flatten.tree_to_flat(opt_state[spec.state_keys[0]])).clone()
+    carry = (ring, s, res)
+    del params0, opt_state, flat0
+    aux = None
+    if whatif:
+        aux = tuple(own(t.to(dev).to(torch.float32)).contiguous()
+                    for t in flat_grad[1:])
+
+    xs = _spmd_rank_xs(trace, K, plan, mesh, dev, batches, whatif)
+    run_fn = _make_spmd_scan_fn(None if whatif else grad_fn, spec,
+                                trace.mode, c, layout, plan, mesh, xs,
+                                group_size=trace.group_size, ring_impl=impl,
+                                whatif=whatif, assembly=assembly, aux=aux)
+    first_learner = mesh.axis_index("learner") == 0
+
+    def params_of(done: int):
+        """The snapshot of ``done`` assembled over "ps" on the first
+        learner rank of every shard (None elsewhere)."""
+        if not first_learner:
+            return None
+        i = torch.tensor([done % K], device=dev)
+        row = ring.index_select(0, i)[0, :Dp].to(torch.float32)
+        if res is not None:
+            row = row + res[:Dp]
+        full = backends.all_gather(row, mesh, "ps")         # (S, Dp)
+        return flatten.flat_to_tree(flatten.shard_unpack(full, D).clone(),
+                                    layout)
+
+    history = []
+    seg = eval_every if (eval_fn and eval_every) else steps
+    for lo in range(0, steps, max(seg, 1)):
+        hi = min(lo + seg, steps)
+        run_fn(carry, lo, hi)
+        if eval_fn and eval_every and hi % eval_every == 0:
+            params = params_of(hi)
+            if mesh.rank == 0:
+                history.append({"update": hi,
+                                "time": float(trace.event_time[hi - 1]),
+                                **eval_fn(params)})
+    params = params_of(steps)
+    if mesh.rank != 0:
+        return None
+    return SimResult(trace.clock_log(), steps, trace.simulated_time,
+                     trace.minibatches, params, history)
+
+
+def _spmd_rank_main(payload: dict):
+    """Entry of a rank spawned by the SPMD replay: replay, and hand rank 0
+    the result (parameters on the host) and every rank's kernel launches."""
+    import torch.distributed as dist
+    dev = resolve_device(payload.pop("device"))
+    before = dict(replay_ring.launches)
+    res = _replay_spmd_rank(dev=dev, **payload)
+    mine = {k: n - before[k] for k, n in replay_ring.launches.items()}
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, mine)
+    if res is not None:
+        res.params = tree_map(lambda t: t.cpu(), res.params)
+    return res, counts
+
+
+def _replay_spmd(trace: ArrivalTrace, run: RunConfig, *, spec, grad_fn,
+                 init_params, batch_fn, batches, eval_fn, eval_every,
+                 flat_grad, assembly: str,
+                 device: torch.device) -> Optional[SimResult]:
+    """The ``placement="spmd"`` arm of :func:`replay`: resolve the trace's
+    :func:`placement_plan` against the ranks the mesh may use, then replay
+    in this world (inside a rank) or spawn one (``mesh.shard_map``).
+    Validations shared with the single placement already ran."""
+    gs = trace.group_size
+    if trace.serving is not None:
+        raise ValueError(
+            "serving traces cannot replay with placement='spmd': the "
+            "serving lane captures published ring rows inside the "
+            "single-device loop, which the mesh splits into per-shard "
+            "(K, Dp) rings; replay with placement='single' (the default)")
+    if not spec.kernel_supported:
+        raise ValueError(
+            f"placement='spmd' needs a kernel-supported optimizer (flat "
+            f"per-shard ring carries); {spec.optimizer!r} has none")
+    if assembly not in SPMD_ASSEMBLIES:
+        raise ValueError(f"unknown spmd_assembly {assembly!r}: expected "
+                         f"one of {SPMD_ASSEMBLIES}")
+    # "stock" has no per-rank flat ring body; its fused twin is bitwise at
+    # fp32 (RunConfig validation already keeps bf16 off stock)
+    impl = backends.resolve_ring_impl(run.ring_impl, spec)
+    if impl == "stock":
+        impl = "fused"
+    whatif = flat_grad is not None and trace.mode == "combine" and gs == 1
+    if whatif:
+        if flat_grad[0] != "quadratic":
+            raise ValueError(f"unknown flat_grad kind {flat_grad[0]!r}; "
+                             f"expected ('quadratic', a, wstar)")
+    elif grad_fn is None:
+        raise ValueError("grad_fn is required outside the what-if replay")
+    elif (batch_fn is None) == (batches is None):
+        raise ValueError("pass exactly one of batch_fn / batches")
+
+    plan = placement_plan(trace, run, mesh_lib.device_count())
+    if whatif:
+        # closed-form gradients are shard-local: no learner axis needed
+        plan = PlacementPlan(shards=plan.shards, learners=1, c=trace.c)
+        batches = grad_fn = None
+    elif batches is None:
+        batches = _materialize_batches(trace, batch_fn)
+    payload = dict(trace=trace, run=run, plan=plan, grad_fn=grad_fn,
+                   init_params=init_params, batches=batches,
+                   eval_fn=eval_fn, eval_every=eval_every,
+                   flat_grad=flat_grad, impl=impl, whatif=whatif,
+                   assembly=assembly)
+    if mesh_lib.in_world():
+        return _replay_spmd_rank(dev=device, **payload)
+    if device.type == "cuda" and impl == "kernel":
+        # the ranks only load the library: it is built here, once
+        from repro_torch.kernels import build
+        build.load("replay_ring")
+    payload["init_params"] = {k: v.cpu() for k, v in init_params.items()}
+    if whatif:
+        payload["flat_grad"] = (flat_grad[0],) + tuple(
+            t.cpu() for t in flat_grad[1:])
+    payload["device"] = str(device)
+    res, counts = mesh_lib.shard_map(_spmd_rank_main, plan.devices, payload)
+    # the ranks' launches count as this process's (per rank: rank_launches)
+    replay_ring.rank_launches = counts
+    for k in replay_ring.launches:
+        replay_ring.launches[k] += sum(c[k] for c in counts)
+    res.params = tree_map(lambda t: t.to(device), res.params)
+    return res
 
 
 def replay_batch(traces: Sequence[ArrivalTrace],

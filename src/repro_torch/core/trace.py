@@ -451,8 +451,60 @@ schedule_cached.cache_info = _schedule_cached.cache_info
 schedule_cached.cache_clear = _schedule_cached.cache_clear
 
 
-# placement_plan (SPMD placement, DESIGN.md §13) is not ported yet: see
-# ROADMAP.md queue 1 item 8.
+# ---------------------------------------------------------------------------
+# SPMD placement (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PlacementPlan:
+    """Where a trace's replay runs on the emulated cluster: the schedule's
+    topology mapped onto a ``(ps, learner)`` mesh of ranks.  ``shards`` PS
+    ranks each own one (K, Dp) ring slice; ``learners`` ranks each own a
+    contiguous block of ``slot_block = c // learners`` gradient slots per
+    update.  Host-side; the engine turns it into a mesh of
+    ``torch.distributed`` ranks and their slices (``launch/mesh.py``,
+    ``launch/sharding.py``)."""
+
+    shards: int
+    learners: int
+    c: int
+
+    @property
+    def devices(self) -> int:
+        return self.shards * self.learners
+
+    @property
+    def slot_block(self) -> int:
+        return self.c // self.learners
+
+    def describe(self) -> str:
+        return (f"spmd[{self.shards}ps×{self.learners}learner] "
+                f"slot_block={self.slot_block}")
+
+
+def placement_plan(trace: "ArrivalTrace", run: RunConfig,
+                   device_count: int) -> PlacementPlan:
+    """Resolve the trace's placement: S from the schedule's topology, L
+    from ``run.spmd_learners`` (0 = auto — the largest divisor of c such
+    that S·L fits ``device_count``, the ranks the mesh may spawn)."""
+    topo = trace.topology or Topology()
+    S, c = topo.shards, trace.c
+    if S > device_count:
+        raise RuntimeError(
+            f"placement='spmd' with shards={S} needs {S} devices but only "
+            f"{device_count} are visible; call "
+            f"launch.mesh.ensure_host_devices({S}) first")
+    L = run.spmd_learners
+    if L == 0:
+        L = max(d for d in range(1, c + 1)
+                if c % d == 0 and S * d <= device_count)
+    if c % L != 0:
+        raise ValueError(f"spmd_learners={L} must divide c={c}")
+    if S * L > device_count:
+        raise RuntimeError(
+            f"placement plan {S}ps×{L}learner needs {S * L} devices but "
+            f"only {device_count} are visible; lower spmd_learners or raise "
+            f"the host device count (launch.mesh.ensure_host_devices)")
+    return PlacementPlan(shards=S, learners=L, c=c)
 
 
 def _schedule_hardsync(run: RunConfig, steps: int, topo: Topology,

@@ -26,12 +26,12 @@ Guarded metrics:
 * ``megakernel_vs_xla_ratio``  — the CUDA ``ring_apply`` event vs the
   stock gather → update → row-write chain on the same trace and staged
   batches (the reference's megakernel-vs-XLA row, under its name).
+* ``distributed_replay_updates_per_s`` — ``placement="spmd"`` what-if
+  replay throughput at S = 4 "ps" ranks (the ``distributed`` cell's
+  ``measure`` at D = 1 M, shards 1 and 4; DESIGN.md §13).  Absolute, wide
+  margin: the four ranks share one card.
 * ``serving_requests_per_s`` — serving-lane throughput (DESIGN.md §14).
   Absolute, wide margin.
-
-``distributed_replay_updates_per_s`` (the reference's SPMD what-if
-throughput) waits for ROADMAP.md item 8: the guard reports it as absent —
-neither measured nor passed — in ``derived["absent"]`` and on stdout.
 
 To demonstrate the gate trips::
 
@@ -66,11 +66,9 @@ FLOOR_MARGINS = {
     "batched_sweep_speedup": 0.55,
     "elastic_schedule_updates_per_s": 0.25,
     "megakernel_vs_xla_ratio": 0.55,
+    "distributed_replay_updates_per_s": 0.25,
     "serving_requests_per_s": 0.25,
 }
-# guarded by the reference, not measurable on the port yet
-ABSENT = {"distributed_replay_updates_per_s":
-          "placement='spmd' waits for ROADMAP.md item 8"}
 
 
 def _bench_elastic_schedule(updates: int = 600, repeats: int = 3) -> dict:
@@ -104,6 +102,8 @@ def _bench_elastic_schedule(updates: int = 600, repeats: int = 3) -> dict:
 def measure(device="cuda") -> dict:
     """The tiny-shape measurement cell on ``device``."""
     from repro_torch.config import RunConfig
+    from repro_torch.experiments.cells.distributed_replay import \
+        measure as _measure_dist
     from repro_torch.experiments.cells.sim_engine_bench import (
         _bench_megakernel, _bench_one, _bench_sweep)
     from repro_torch.experiments.cells.train_while_serve import \
@@ -118,6 +118,8 @@ def measure(device="cuda") -> dict:
                          device=device)
     elastic = _bench_elastic_schedule()
     mk = _bench_megakernel(updates=48, lam=16, repeats=3, device=device)
+    dist = _measure_dist(updates=32, d=1_000_000, repeats=2, shards=(1, 4),
+                         device=device)
     serve = _measure_serve(updates=32, requests=512, repeats=2,
                            device=device)
     return {
@@ -127,12 +129,15 @@ def measure(device="cuda") -> dict:
             "batched_sweep_speedup": sweep["speedup"],
             "elastic_schedule_updates_per_s": elastic["updates_per_s"],
             "megakernel_vs_xla_ratio": mk["megakernel_vs_xla_ratio"],
+            "distributed_replay_updates_per_s":
+                dist["updates_per_s"]["spmd_s4"],
             "serving_requests_per_s": serve["requests_per_s"],
         },
         "engine_cell": row,
         "sweep_cell": sweep,
         "elastic_schedule_cell": elastic,
         "megakernel_cell": mk,
+        "distributed_replay_cell": dist,
         "serving_cell": serve,
     }
 
@@ -162,12 +167,8 @@ def compute(floor_scale: float = 1.0, floor_path: str = None,
         status = "ok" if r["ok"] else "REGRESSED"
         print(f"[bench-guard] {r['metric']}: measured={r['measured']:.2f} "
               f"min_allowed={r['min_allowed']:.2f} -> {status}")
-    for name, why in ABSENT.items():
-        print(f"[bench-guard] {name}: ABSENT — not measured, not passed "
-              f"({why})")
     return [], {"measured": measured, "floor": floor,
-                "floor_scale": floor_scale, "checks": rows,
-                "absent": dict(ABSENT)}
+                "floor_scale": floor_scale, "checks": rows}
 
 
 def card_line() -> str:

@@ -8,12 +8,9 @@ per host-PS update on the card) and time/epoch from the calibrated
 runtime model scaled to a 289 MB model.
 
 Campaign report cell: depends on the topology / elastic / serve /
-sim_engine cells and folds their ``derived`` blocks into the summary
-envelope, reading them through the registry (``needs_results_dir``).
-The reference also depends on ``distributed``, which the port does not
-have yet (ROADMAP.md item 8): ``registry.resolve_order`` and
-``cell_hash`` reject a dep that is not registered, so it is left out of
-``_DEPS`` and its fold is skipped until then.
+distributed / sim_engine cells and folds their ``derived`` blocks into the
+summary envelope, reading them through the registry
+(``needs_results_dir``).
 """
 
 from __future__ import annotations
@@ -21,7 +18,7 @@ from __future__ import annotations
 from repro_torch.experiments.registry import (Cell, Claim, emit,
                                               load_envelope, register_cell)
 
-_DEPS = ("topology", "elastic", "serve", "sim_engine")
+_DEPS = ("topology", "elastic", "serve", "distributed", "sim_engine")
 
 # Table 3's candidates and Table 4's deployments (label, protocol, n, μ, λ)
 _CANDIDATES = (
@@ -186,6 +183,19 @@ def compute(epochs: int = 10, results_dir: str = None, device="cuda"):
         emit("summary/serve/staleness_tradeoff_holds",
              all(claims.values()) if claims else False,
              " ".join(k for k, v in sorted(claims.items()) if not v))
+
+    derived = _derived_of("distributed", results_dir)
+    if derived:
+        out["distributed_replay"] = derived
+        ups = derived.get("updates_per_s", {})
+        for key, v in sorted(ups.items()):
+            emit(f"summary/distributed/{key}", f"{v:.1f}up/s",
+                 f"devices={derived.get('devices')} D={derived.get('d')}")
+        ratios = {k: v for k, v in derived.items()
+                  if k.startswith("scaling_")}
+        for key, v in sorted(ratios.items()):
+            emit(f"summary/distributed/{key}", f"{v:.2f}x",
+                 f"cpu_count={derived.get('cpu_count')}")
 
     rows = _derived_of("sim_engine", results_dir)
     if rows:

@@ -54,6 +54,11 @@ class MLPProblem:
         self._test_sets: Dict[torch.device, Tuple] = {}
         self._init = None
 
+    def __getstate__(self):
+        """Pickled without the per-device test-set cache: an SPMD replay's
+        rank builds its own on its device."""
+        return dict(self.__dict__, _test_sets={})
+
     @property
     def dataset_size(self) -> int:
         return self.task.n_train

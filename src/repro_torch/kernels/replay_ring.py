@@ -38,8 +38,11 @@ from repro_torch.kernels import build
 from repro_torch.optim import backends
 from repro_torch.optim.spec import UpdateSpec
 
-# kernel launches per wrapper since the last reset_launches()
+# kernel launches per wrapper since the last reset_launches(), those of the
+# ranks an SPMD replay spawned from this process included
 launches = {"ring_apply": 0, "ring_apply_whatif": 0}
+# per rank, the launches of the last SPMD replay this process spawned
+rank_launches = []
 
 _RING_DTYPES = (torch.float32, torch.bfloat16)
 # distinct pulled rows the what-if kernel holds in registers

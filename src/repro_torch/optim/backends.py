@@ -235,6 +235,72 @@ def resolve_ring_impl(impl: str, spec: UpdateSpec) -> str:
     return impl
 
 
+# ---------------------------------------------------------------------------
+# SPMD replay collectives (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+# ``mesh`` is a ``launch.mesh.SimMesh``.  gloo carries the collectives on
+# host tensors (on the card every rank shares one device, and NCCL will not
+# run two ranks on one device), so each helper stages its operand through
+# the host and returns a tensor on the operand's device.
+def all_gather(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """``dist.all_gather`` over the mesh axis: the (size, *x.shape) stack
+    of every rank's ``x`` in axis-index order."""
+    import torch.distributed as dist
+    size = mesh.axis_size(axis_name)
+    if size == 1:
+        return x[None]
+    h = x.contiguous().cpu()
+    out = [torch.empty_like(h) for _ in range(size)]
+    dist.all_gather(out, h, group=mesh.group(axis_name))
+    return torch.stack(out).to(x.device)
+
+
+def ring_all_gather(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """:func:`all_gather` rebuilt from size − 1 neighbor exchanges
+    (``dist.isend`` / ``dist.irecv``) — the parameter-server ring-pull
+    pattern, where each PS rank forwards the slice it just received to its
+    neighbor.  Pure data movement, so the result is **bitwise** that of
+    :func:`all_gather`; it trades one collective for S − 1 dependent hops,
+    so the engine uses it only when asked (``spmd_assembly='ppermute'``)."""
+    import torch.distributed as dist
+    size = mesh.axis_size(axis_name)
+    if size == 1:
+        return x[None]
+    ranks, group = mesh.ranks(axis_name), mesh.group(axis_name)
+    i = mesh.axis_index(axis_name)
+    cur = x.contiguous().cpu()
+    chunks = [cur]
+    for _ in range(size - 1):
+        got = torch.empty_like(cur)
+        reqs = [dist.isend(cur, ranks[(i + 1) % size], group=group),
+                dist.irecv(got, ranks[(i - 1) % size], group=group)]
+        for r in reqs:
+            r.wait()
+        chunks.append(got)
+        cur = got
+    # chunk k on rank i originated at rank (i − k) mod size; reorder so
+    # position s holds rank s's slice, as all_gather does
+    return torch.stack([chunks[(i - s) % size]
+                        for s in range(size)]).to(x.device)
+
+
+def combine_spmd(g: torch.Tensor, coef: torch.Tensor, mesh,
+                 axis_name: str) -> torch.Tensor:
+    """The combine ĝ = Σⱼ coefⱼ·gⱼ with the slot axis split over the mesh
+    axis: each learner rank folds its local slot block (:func:`combine`,
+    slot order), then one ``dist.all_reduce(SUM)`` folds the partials.
+    For a single learner rank this is bitwise :func:`combine`; with L > 1
+    the partial sums reorder the fp32 reduction (the ~1 ulp/event
+    tolerance of DESIGN.md §13)."""
+    import torch.distributed as dist
+    part = combine(g, coef)
+    if mesh.axis_size(axis_name) == 1:
+        return part
+    h = part.cpu()
+    dist.all_reduce(h, op=dist.ReduceOp.SUM, group=mesh.group(axis_name))
+    return h.to(g.device)
+
+
 def _row(ring: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """Row ``i`` (a 0-dim or (1,) index tensor) of ``ring`` as fp32."""
     return ring.index_select(0, i.reshape(1))[0].to(torch.float32)

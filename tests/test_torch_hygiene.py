@@ -75,7 +75,14 @@ def test_port_file_list_is_complete():
                      "experiments/cells/bench_guard.py",
                      "experiments/cells/smoke_cells.py",
                      "launch/__init__.py", "launch/roofline.py",
-                     "experiments/bench_guard.py"):
+                     "experiments/bench_guard.py", "launch/mesh.py",
+                     "launch/sharding.py",
+                     "experiments/cells/ring_feasibility.py",
+                     "experiments/cells/distributed_replay.py",
+                     "configs/internvl2_2b.py", "configs/hubert_xlarge.py",
+                     "configs/qwen3_14b.py", "configs/starcoder2_7b.py",
+                     "configs/llama4_maverick_400b_a17b.py",
+                     "configs/llama3_405b.py", "configs/arctic_480b.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",

@@ -167,22 +167,20 @@ def test_analytic_cells_equal_the_committed_envelopes(name):
 def test_cells_in_paper_and_smoke_match_reference(R):
     have = [c.name for c in registry.cells_in("paper")]
     want = [c.name for c in R.registry.cells_in("paper")]
-    # not ported yet: ring (item 6.4) and distributed (item 8)
-    assert have == [n for n in want if n not in ("ring", "distributed")]
+    assert have == want and {"ring", "distributed"} <= set(have)
     assert [c.name for c in registry.cells_in("smoke")] == [
         c.name for c in R.registry.cells_in("smoke")]
 
 
 def test_table3_4_deps_leave_out_distributed(R):
-    """The reference's table3_4 also depends on ``distributed``, which the
-    port does not have until ROADMAP.md item 8: the registry rejects an
-    unregistered dep, so the port lists the other four."""
+    """Named when the port left ``distributed`` out of table3_4's deps
+    (until ROADMAP.md item 8): now its five deps are the reference's, in
+    the reference's order, and resolve dependency-first."""
     cell = registry.get_cell("table3_4")
     ref = R.registry.get_cell("table3_4")
-    assert cell.deps == ("topology", "elastic", "serve", "sim_engine")
-    assert set(ref.deps) - set(cell.deps) == {"distributed"}
-    with pytest.raises(KeyError):
-        registry.get_cell("distributed")
+    assert cell.deps == ref.deps == ("topology", "elastic", "serve",
+                                     "distributed", "sim_engine")
+    assert registry.get_cell("distributed").result == "distributed_replay"
     order = registry.resolve_order(["table3_4"])
     assert order[-1] == "table3_4" and set(cell.deps) <= set(order)
 
@@ -220,7 +218,7 @@ def test_bench_guard_check_matches_reference_and_trips():
     from repro.experiments.cells import bench_guard as r_bench_guard
     floor = json.loads(Path(bench_guard.FLOOR_PATH).read_text())
     assert set(floor["floors"]) == set(bench_guard.FLOOR_MARGINS)
-    assert "distributed_replay_updates_per_s" not in floor["floors"]
+    assert set(floor["floors"]) == set(r_bench_guard.FLOOR_MARGINS)
     for scale in (1.0, 0.5, 100.0):
         for factor in (0.5, 0.71, 1.0, 2.0):
             metrics = {k: v * factor for k, v in floor["floors"].items()}
@@ -236,8 +234,8 @@ def test_bench_guard_cli_passes_at_scale_1_and_fails_at_100(monkeypatch,
                                                             tmp_path,
                                                             capsys):
     """The CLI through ``run_cell`` with the measurement stubbed at the
-    floors' own values: exit 0, then exit 1 at ``--floor-scale 100``; the
-    distributed metric is reported absent, not passed."""
+    floors' own values: exit 0, then exit 1 at ``--floor-scale 100``; no
+    metric is absent (the distributed one included)."""
     floor = json.loads(Path(bench_guard.FLOOR_PATH).read_text())
     monkeypatch.setattr(bench_guard, "measure", lambda device="cuda": {
         "metrics": dict(floor["floors"])})
@@ -246,10 +244,11 @@ def test_bench_guard_cli_passes_at_scale_1_and_fails_at_100(monkeypatch,
     assert bench_guard.main(argv) == 0
     env = registry.load_envelope("bench_guard", str(tmp_path))
     assert env["campaign"]["claims"]["all_perf_floors_hold"]["ok"]
-    assert set(env["derived"]["absent"]) == {
-        "distributed_replay_updates_per_s"}
-    assert "distributed_replay_updates_per_s: ABSENT" in \
-        capsys.readouterr().out
+    assert "absent" not in env["derived"]
+    checked = {r["metric"] for r in env["derived"]["checks"]}
+    assert checked == set(bench_guard.FLOOR_MARGINS)
+    assert "distributed_replay_updates_per_s" in checked
+    assert "ABSENT" not in capsys.readouterr().out
     assert bench_guard.main(argv + ["--floor-scale", "100"]) == 1
     env = registry.load_envelope("bench_guard", str(tmp_path))
     assert not env["campaign"]["claims"]["all_perf_floors_hold"]["ok"]
@@ -323,9 +322,15 @@ def test_table3_4_folds_dependency_envelopes(tmp_path):
            "speedup": 5.0}
     campaign.write_envelope(cell, [], {"softsync_1_lambda_8": row}, {},
                             False, False, str(tmp_path))
+    dist = {"devices": 8, "cpu_count": 8, "d": 4096,
+            "updates_per_s": {"spmd_s1": 10.0, "spmd_s4": 12.0},
+            "scaling_s4_over_s1": 1.2}
+    campaign.write_envelope(registry.get_cell("distributed"), [], dist, {},
+                            False, False, str(tmp_path))
     _, d = table3_4_summary.compute(epochs=0.02, results_dir=str(tmp_path),
                                     device="cpu")
     assert d["sim_engine"] == {"softsync_1_lambda_8": row}
+    assert d["distributed_replay"] == dist
     assert "topology_scaling" not in d and "elastic_churn" not in d
 
 
@@ -352,7 +357,8 @@ def test_reference_envelopes_of_paper_cells_are_current(R, name):
 
 
 @pytest.mark.parametrize("name", ("fig5", "baselines", "table3_4",
-                                  "sim_engine", "kernels", "bench_guard"))
+                                  "sim_engine", "kernels", "bench_guard",
+                                  "ring", "distributed"))
 def test_new_cells_default_to_cuda_and_raise_without_card(name, monkeypatch,
                                                           tmp_path):
     """Without a card, a cell run with no ``device=`` raises instead of

@@ -243,19 +243,6 @@ def test_execute_raw_callables():
     assert measured.params is None and measured.updates == 12
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(placement="spmd"), "item 8"),
-])
-def test_not_ported_paths_raise(change, item):
-    """Only SPMD placement is still refused (ROADMAP.md item 8)."""
-    ts = TSpec(run=TRun(protocol="softsync", n_learners=8, minibatch=4,
-                        **change),
-               problem="mlp_teacher", problem_args={"hidden": HIDDEN},
-               steps=STEPS)
-    with pytest.raises(NotImplementedError, match=item):
-        t_run(ts, device="cpu")
-
-
 @pytest.mark.parametrize("name,port_kw,ref_kw", [
     ("stock", dict(ring_impl="stock"), None),
     ("adamw", dict(optimizer="adamw"), None),
