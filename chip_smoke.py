@@ -210,22 +210,54 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    deps' card envelopes (phases 11–13) beside it (claims ok, every dep
    folded, ``ps_apply`` launches as reckoned: 10 122) and ``bench_guard``
    (all seven floors hold; at 100 times them, they trip).
+14. Training (``tools/train_probe.py`` runs this phase alone).  14a:
+   qwen2_1_5b at full width and depth (28 layers, d 1 536, vocab 151 936,
+   bf16, weights from a seeded ``torch.Generator`` on the card) through
+   ``train.loop.train`` at batch 8 × seq 1 024, momentum,
+   ``staleness_inverse``, remat, the chunked attention: softsync n 4,
+   λ 8 through the sequential engine (3 rounds), the fused engine (3
+   rounds), then hardsync (2 rounds); every loss finite, no kernel
+   launched (the training path runs none: ``models.model_loss``); ms per
+   round (each synchronised; the first with its warm-up), tokens/s and
+   peak memory per engine.  14c: the fused case's params (bf16, stored as
+   fp32) and velocity saved with ``checkpoint.io`` and reloaded into fresh
+   trees on the card, bitwise; bytes and seconds.  14b: qwen2_1_5b's
+   width at 2 layers in fp32 (batch 8 × 16, naive attention): one round of
+   each engine on the card against the same round on the CPU, each leaf's
+   update and velocity within ``FIDELITY_REL`` (1e-3) of its largest
+   update; sgd fused against sequential on the card within ``FUSED_ATOL``
+   (1e-6, the reference's bound on its toy problem); one hardsync engine
+   step against ``simulate``'s one hardsync update over λ = 8 learners
+   (one ``ps_apply`` launch over the flattened model) within ``SIM_ATOL``
+   (1e-6).  14d: ``python -m repro_torch.launch.train --arch qwen2-1.5b
+   --steps 2 --batch 8 --seq 1024 --engine fused --ckpt <tmp>`` as a
+   subprocess: exit 0, its staleness line (a measure-mode schedule, as in
+   the reference: no kernel), its checkpoint loaded here (every leaf
+   finite).  14e: the
+   ``cnn`` cell at its defaults (1 600 updates, two policies) through
+   ``campaign.run_cell``, cuDNN's deterministic algorithms on (the cell
+   is chaotic): its claim ok, 3 200 ``ps_apply`` launches; then
+   at 30 updates on the card and on the CPU, each test error within
+   ``CNN_SPREAD`` (2) of the 512 test samples of the CPU's (the spread
+   one-ulp changes of every initial weight give it on the CPU, 0, + 2).
 
 Launch counts are zeroed just before each main-path phase (4, 4b, 5, 5b,
 5c, 6, each run of phases 8–10, each cell of phases 11–13 and each SPMD
-case of phase 13, in every rank) and read just after it; they must equal the update counts (phases 8–10: one
+case of phase 13, in every rank, each case of phase 14) and read just
+after it; they must equal the update counts (phases 8–10: one
 kernel launch per attention, mamba or rwkv layer of a prefill forward,
 none in decode); flash launches are also counted per kernel
 (``flash_sm90``, ``flash_tf32x3``).  The ``kernels`` line adds every
 phase-12 and phase-13 cell's launches but the ``kernels`` cell's, which
-holds each kernel against a plain chain, and phase 13's SPMD launches
-summed over ranks (the ``ring`` cell's children count their own).
+holds each kernel against a plain chain, phase 13's SPMD launches
+summed over ranks (the ``ring`` cell's children count their own) and
+phase 14's ``ps_apply`` (14b and 14e).
 
-Time budget: the whole script aims to stay under 700 s, well inside a
-900 s limit: it took 593.8 s on one NVIDIA H100 80GB HBM3, 700.00 W
-(phase 12 265.6 s, card runs and CPU twins; phase 13 105.7 s).  Its time
-follows the host: on a slower host it took 717.4 s (phase 12 347.7 s,
-with phase 13b's worlds still one per S).
+Time budget: the whole script took 837.9 s on one NVIDIA H100 80GB HBM3,
+700.00 W (phase 12 330.1 s, card runs and CPU twins; phase 13 132.0 s;
+phase 14 123.7 s, ~30 s of it writing three 7.1 GB checkpoints), inside
+a 1 200 s limit.  Its time follows the host: phases 1–13 took
+593.8–717.4 s before phase 14 was added (phase 12 265.6–347.7 s).
 """
 
 import dataclasses
@@ -2522,6 +2554,409 @@ def phase_ring_distributed(dev, launches, keep):
     timing_cell("bench_guard", on_card, launches, bench_guard)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the training engines, checkpoints, the train CLI, the cnn cell
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen2_1_5b"
+TRAIN_B, TRAIN_S = 8, 1024               # 8 192 tokens a round
+TRAIN_CASES = (("sequential", "softsync", 3), ("fused", "softsync", 3),
+               ("hardsync", "hardsync", 2))
+# 14b, one round on the card against the same round on the CPU: each
+# leaf's new velocity within this share of its largest magnitude, and its
+# new weights within this share of its largest update plus one fp32 ulp of
+# its largest weight (an update far below a weight's ulp, as a norm
+# scale's is, flips that weight's last rounding on a difference of the
+# update of a few ulps) — fp32 sums in other orders (cuBLAS against the
+# CPU's BLAS, the embedding backward's atomics) through a 2-layer backward
+# and a 151 936-wide softmax, with the naive attention (the chunked one's
+# bf16 P·V product flips a probability's rounding now and then, a 2⁻⁸
+# step)
+FIDELITY_REL = 1e-3
+FID_B, FID_S = 8, 16
+# sgd fused ≡ sequential and a hardsync engine step ≡ simulate's hardsync
+# update over λ learners: the reference's own bounds on its toy problems
+# (tests/test_system.py:109, tests/test_cross_validation.py), absolute
+FUSED_ATOL = 1e-6
+SIM_ATOL = 1e-6
+# 14e: the cnn cell at a reduced budget on the card beside the CPU.  On
+# the CPU, one-ulp changes of every initial weight (16 seeded draws,
+# ``python tests/test_torch_cnn.py N``) move its test errors by up to 0,
+# 0, 2, 4 and 28 of the 512 test samples at 20, 30, 40, 60 and 100
+# updates: const sits on its plateau, staleness_inverse leaves it and
+# turns chaotic.  The card rounds every convolution differently, more than
+# those draws (3 samples apart at 40 updates), so the comparison runs at
+# 30, each policy within its spread + 2.
+CNN_REDUCED = 30
+CNN_SPREAD = {"const": 0 + 2, "staleness_inverse": 0 + 2}
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of tensors as one level {"a/b/c": tensor} (the host
+    PS flattens one level of keys)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def nest_tree(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def rel_leaf_diff(a, b, base=None) -> float:
+    """max over leaves of max|a − b| / scale, the scale max|b| or, with
+    ``base``, max|b − base| (the update) + one fp32 ulp of max|b|
+    over ``FIDELITY_REL``; computed on ``a``'s device."""
+    import numpy as np
+    worst = 0.0
+    fa, fb = flat_tree(a), flat_tree(b)
+    fbase = flat_tree(base) if base is not None else None
+    for k in fb:
+        x = fa[k]
+        y = fb[k].to(x.device)
+        scale = float(y.abs().max())
+        if fbase is not None:
+            upd = float((y - fbase[k].to(x.device)).abs().max())
+            scale = upd + float(np.spacing(np.float32(scale))) / FIDELITY_REL
+        err = float((x - y).abs().max())
+        worst = max(worst, err / scale if scale else (0.0 if err == 0
+                                                      else math.inf))
+    return worst
+
+
+def abs_leaf_diff(a, b) -> float:
+    fa, fb = flat_tree(a), flat_tree(b)
+    return max(float((fa[k] - fb[k].to(fa[k].device)).abs().max())
+               for k in fb)
+
+
+def train_case(cfg, run, engine, rounds, params, dev):
+    """``train.loop.train`` for ``rounds`` rounds on the card, counted; the
+    time of each round (synchronised after it), peak memory, losses."""
+    import torch
+    from repro_torch.train.loop import train
+    stamps = []
+
+    def stamp(_params):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return {}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, secs, counts = counted(lambda: train(
+        cfg, run, steps=rounds, batch=TRAIN_B, seq=TRAIN_S, engine=engine,
+        eval_every=1, eval_fn=stamp, params=params, device=dev))
+    ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    return res, ms, torch.cuda.max_memory_allocated(), counts
+
+
+def phase_train_full(dev):
+    """14a: qwen2_1_5b at full width and depth through train.loop.train;
+    returns the fused case's (params, velocity) for 14c."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_model
+    cfg = get_config(TRAIN_ARCH)
+    params = init_model(cfg, 0, device=dev)
+    run = RunConfig(protocol="softsync", n_softsync=4, n_learners=8,
+                    minibatch=TRAIN_B // 8, base_lr=0.01,
+                    lr_policy="staleness_inverse", optimizer="momentum",
+                    remat=True, attn_q_chunk=TRAIN_S, attn_kv_chunk=TRAIN_S)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}, "
+        f"{count_params(params)} parameters; batch {TRAIN_B} x seq "
+        f"{TRAIN_S}, n 4, lambda 8, momentum, staleness_inverse, remat, "
+        f"attn_impl {run.attn_impl!r}")
+    kept = None
+    for engine, protocol, rounds in TRAIN_CASES:
+        res, ms, peak, counts = train_case(
+            cfg, dataclasses.replace(run, protocol=protocol), engine,
+            rounds, params, dev)
+        expect(counts, f"phase 14a {engine}")
+        losses = [h["loss"] for h in res.history]
+        if len(losses) != rounds or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"phase 14a {engine}: losses {losses}")
+        steady = sum(ms[1:]) / len(ms[1:])
+        log(f"  14a {engine}: {rounds} rounds, ms per round "
+            f"{', '.join(f'{m:.1f}' for m in ms)} (the first with its "
+            f"warm-up); {steady:.1f} ms per round after it, "
+            f"{TRAIN_B * TRAIN_S / steady * 1e3:.1f} tokens/s; peak "
+            f"{peak} bytes = {peak / 2**30:.2f} GiB; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; launches 0")
+        if engine == "fused":
+            kept = (res.params, res.opt_state)
+        del res
+    del params
+    return kept
+
+
+def phase_checkpoints(params, opt_state, dev):
+    """14c: 14a's fused params (bf16, stored as fp32) and velocity saved
+    and reloaded into fresh trees, bitwise."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.io import load_checkpoint, save_checkpoint
+    from repro_torch.optim.flatten import tree_map
+    with tempfile.TemporaryDirectory(prefix="ckpt_") as d:
+        log(f"  free disk where checkpoints go: "
+            f"{shutil.disk_usage(d).free / 2**30:.1f} GiB")
+        for name, tree in (("params", params), ("velocity", opt_state)):
+            path = os.path.join(d, f"{name}.npz")
+            t0 = time.perf_counter()
+            save_checkpoint(path, tree, step=3)
+            t1 = time.perf_counter()
+            fresh = tree_map(torch.empty_like, tree)
+            got, step = load_checkpoint(path, fresh)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            a, b = flat_tree(tree), flat_tree(got)
+            same = all(torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                       and b[k].device == a[k].device for k in a)
+            if not same or step != 3 or sorted(a) != sorted(b):
+                raise AssertionError(f"phase 14c {name}: reload differs")
+            log(f"  14c {name}: {len(a)} leaves, {os.path.getsize(path)} "
+                f"bytes on disk; save {t1 - t0:.1f} s, load {t2 - t1:.1f} "
+                f"s; reloaded bitwise (dtype and device kept)")
+            os.remove(path)
+            del got, fresh
+
+
+def phase_fidelity(dev, launches):
+    """14b: qwen2_1_5b's width at 2 layers in fp32 — each engine's round
+    on the card against the CPU, sgd fused against sequential, and a
+    hardsync engine step against simulate's hardsync update."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import (init_opt_state, make_hardsync_step,
+                                  make_train_step, simulate)
+    from repro_torch.core.distributed import grad_with_accum
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import init_model, model_loss
+    from repro_torch.optim.flatten import tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, n_units=2,
+                              dtype="float32")
+    cpu_p = init_model(cfg, 1, device="cpu")
+    card_p = tree_map(lambda t: t.to(dev), cpu_p)
+    batch = make_batch_fn(cfg, FID_B, FID_S, seed=0)(0)
+    on = {"cpu": {k: torch.from_numpy(v) for k, v in batch.items()},
+          "cuda": {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}}
+    base = dict(n_softsync=4, n_learners=8, minibatch=1, base_lr=0.01,
+                lr_policy="staleness_inverse", optimizer="momentum",
+                attn_impl="naive")
+
+    def step_on(run, engine, params, where):
+        loss = lambda p, b, sample_weights=None: model_loss(
+            cfg, run, p, b, sample_weights=sample_weights)
+        step = make_train_step(run, loss, engine)
+        out, secs, counts = counted(lambda: step(
+            params, init_opt_state(run, params), on[where]))
+        if where == "cuda":
+            expect(counts, f"phase 14b {engine}")
+        return out, secs
+
+    log(f"  14b.1 one round, card against CPU, {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, fp32, batch {FID_B} x {FID_S}: tolerance "
+        f"{FIDELITY_REL} of each leaf's largest update (+ one ulp of its "
+        f"largest weight) and velocity")
+    for engine, protocol in (("hardsync", "hardsync"),
+                             ("sequential", "softsync"),
+                             ("fused", "softsync")):
+        run = RunConfig(protocol=protocol, **base)
+        (pc, oc, _), csecs = step_on(run, engine, cpu_p, "cpu")
+        (pg, og, _), gsecs = step_on(run, engine, card_p, "cuda")
+        dp = rel_leaf_diff(pg, pc, cpu_p)
+        dv = rel_leaf_diff(og, oc)
+        log(f"    {engine}: max |card - CPU| / (max |update| + ulp / "
+            f"{FIDELITY_REL}) = {dp:.3e} (params), / max |velocity| = "
+            f"{dv:.3e}, tolerance {FIDELITY_REL}; card "
+            f"{gsecs:.2f} s, CPU {csecs:.2f} s")
+        if not dp <= FIDELITY_REL or not dv <= FIDELITY_REL:
+            raise AssertionError(f"phase 14b {engine}: card against CPU "
+                                 f"{dp}, {dv} > {FIDELITY_REL}")
+        del pc, oc, pg, og
+
+    sgd = RunConfig(protocol="softsync", **dict(base, optimizer="sgd"))
+    (pf, _, _), _ = step_on(sgd, "fused", card_p, "cuda")
+    (ps, _, _), _ = step_on(sgd, "sequential", card_p, "cuda")
+    d = abs_leaf_diff(pf, ps)
+    log(f"  14b.2 sgd fused against sequential on the card: max |diff| = "
+        f"{d:.3e}, tolerance {FUSED_ATOL}")
+    if not d <= FUSED_ATOL:
+        raise AssertionError(f"phase 14b sgd fused vs sequential {d}")
+    del pf, ps
+
+    hard = RunConfig(protocol="hardsync", **dict(base, optimizer="sgd",
+                                                 lr_policy="const"))
+    loss = lambda p, b: model_loss(cfg, hard, p, b)
+    eng, _, counts = counted(lambda: make_hardsync_step(hard, loss)(
+        card_p, init_opt_state(hard, card_p), on["cuda"]))
+    expect(counts, "phase 14b hardsync engine")
+
+    def grad_fn(p, b):
+        return flat_tree(grad_with_accum(loss, nest_tree(p), b, 1)[2])
+
+    sim, secs, counts = counted(lambda: simulate(
+        hard, steps=1, grad_fn=grad_fn, init_params=flat_tree(card_p),
+        batch_fn=lambda l, s: {k: v[l:l + 1] for k, v in batch.items()},
+        device=dev))
+    expect(counts, "phase 14b simulate", ps_apply=1)
+    launches["ps_apply"] += 1
+    d = abs_leaf_diff(nest_tree(sim.params), eng[0])
+    log(f"  14b.3 hardsync: one engine step over the batch against "
+        f"simulate's one update over lambda 8 learners (one ps_apply over "
+        f"{sum(v.numel() for v in sim.params.values())} parameters): max "
+        f"|diff| = {d:.3e}, tolerance {SIM_ATOL}; simulate {secs:.2f} s")
+    if not d <= SIM_ATOL:
+        raise AssertionError(f"phase 14b simulate vs engine {d}")
+
+
+def phase_train_cli(dev):
+    """14d: the train CLI at full width as a subprocess; its checkpoint
+    loads here."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.io import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.flatten import tree_map
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="train_cli_") as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "qwen2-1.5b", "--steps", "2", "--batch", str(TRAIN_B),
+               "--seq", str(TRAIN_S), "--engine", "fused", "--ckpt", d]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=600, cwd=str(ROOT))
+        secs = time.perf_counter() - t0
+        for ln in out.stdout.splitlines():
+            log(f"    | {ln}")
+        if out.returncode != 0:
+            raise AssertionError(f"phase 14d: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        m = re.search(r"^protocol=softsync .*expected<sigma>=(\S+)",
+                      out.stdout, re.M)
+        if m is None:
+            raise AssertionError("phase 14d: no staleness line")
+        cfg = get_config(TRAIN_ARCH)
+        template = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                  device=dev),
+                            init_params(cfg, None, "meta"))
+        t1 = time.perf_counter()
+        got, step = load_checkpoint(os.path.join(d, "checkpoint.npz"),
+                                    template)
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in flat_tree(got).values())
+        if step != 2 or not finite:
+            raise AssertionError(f"phase 14d: checkpoint step {step}, "
+                                 f"finite {finite}")
+        log(f"  14d: the CLI in {secs:.1f} s (exit 0; its staleness line: "
+            f"expected <sigma> {m.group(1)}, a measure-mode schedule, no "
+            f"kernel); its checkpoint "
+            f"loaded here in {time.perf_counter() - t1:.1f} s, step 2, "
+            f"every leaf finite")
+        del got, template
+
+
+def phase_cnn(dev, launches, keep):
+    """14e: the cnn cell at its defaults on the card, then at a reduced
+    budget on the card and on the CPU.  cuDNN runs its deterministic
+    algorithms here: the cell's staleness_inverse record is chaotic, and
+    a convolution backward that sums with atomics would move it from run
+    to run (on one H100: 0.0645 to 0.8789 at the defaults, against
+    const's 0.8984)."""
+    import torch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _phase_cnn(dev, launches, keep)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _phase_cnn(dev, launches, keep):
+    from repro_torch.experiments import campaign, registry
+    from repro_torch.experiments.cells import cnn_fig5
+    cell = registry.get_cell("cnn")
+    updates = cell.params["updates"]
+    derived, secs, counts = counted(lambda: campaign.run_cell(
+        "cnn", results_dir=str(keep), device=dev))
+    claims = held_claims("cnn", registry.load_envelope("cnn", str(keep)))
+    expect(counts, "phase 14e cnn", ps_apply=len(cnn_fig5.POLICIES)
+           * updates)
+    launches["ps_apply"] += counts["ps_apply"]
+    log(f"  14e cnn (defaults: {updates} updates a policy): {secs:.1f} s; "
+        f"test errors const {derived['const']:.4f}, staleness_inverse "
+        f"{derived['staleness_inverse']:.4f}; claims {claims}; ps_apply "
+        f"{counts['ps_apply']}")
+    (_, card), csecs, counts = counted(lambda: cnn_fig5.compute(
+        updates=CNN_REDUCED, device=dev))
+    expect(counts, "phase 14e cnn reduced",
+           ps_apply=len(cnn_fig5.POLICIES) * CNN_REDUCED)
+    launches["ps_apply"] += counts["ps_apply"]
+    t0 = time.perf_counter()
+    _, cpu = cnn_fig5.compute(updates=CNN_REDUCED, device="cpu")
+    for policy in cnn_fig5.POLICIES:
+        moved = round(abs(card[policy] - cpu[policy]) * 512)
+        log(f"  14e at {CNN_REDUCED} updates, {policy}: card "
+            f"{card[policy]:.4f}, CPU {cpu[policy]:.4f}: {moved} of 512 "
+            f"test samples apart, tolerance {CNN_SPREAD[policy]}")
+        if moved > CNN_SPREAD[policy]:
+            raise AssertionError(f"phase 14e {policy}: card {card[policy]}"
+                                 f", CPU {cpu[policy]}")
+    log(f"  14e reduced: card {csecs:.1f} s, CPU "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_training(dev, launches, keep):
+    """Phase 14 (see the module docstring)."""
+    import torch
+    log(f"  times on {torch.cuda.get_device_name(0)}; nvidia-smi: "
+        f"{smi_line()}")
+    t = time.perf_counter()
+    log("phase 14a: qwen2_1_5b at full width and depth through "
+        "train.loop.train")
+    params, opt_state = phase_train_full(dev)
+    log(f"  14a in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("phase 14c: checkpoints of 14a's params and velocity")
+    phase_checkpoints(params, opt_state["velocity"], dev)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    log(f"  14c in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("phase 14b: fidelity at qwen2_1_5b's width, 2 layers, fp32")
+    phase_fidelity(dev, launches)
+    torch.cuda.empty_cache()
+    log(f"  14b in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("phase 14d: python -m repro_torch.launch.train --arch qwen2-1.5b "
+        "--steps 2 --batch 8 --seq 1024 --engine fused --ckpt <tmp>")
+    phase_train_cli(dev)
+    log(f"  14d in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("phase 14e: the cnn cell")
+    phase_cnn(dev, launches, keep)
+    log(f"  14e in {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -2657,6 +3092,11 @@ def main() -> int:
         t13 = time.perf_counter()
         phase_ring_distributed(dev, launches, Path(keep))
         log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
+        log("phase 14: the training engines at qwen2_1_5b's full width, "
+            "fidelity, checkpoints, the train CLI, the cnn cell")
+        t14 = time.perf_counter()
+        phase_training(dev, launches, Path(keep))
+        log(f"  phase 14 in {time.perf_counter() - t14:.1f} s")
 
     kernels = []
     ring_src = "src/repro_torch/kernels/csrc/replay_ring.cu"

@@ -6,7 +6,9 @@ the reference's parameters as numpy arrays (``np.asarray`` of each leaf —
 the only form in which they cross the package boundary) and turn them into
 the port's parameter dict; ``driver.run(spec, init=...)`` then starts from
 them.  ``model_params_from_jax`` does the same for a model of the
-``models/`` stack.
+``models/`` stack (checking every leaf against the port's tree), and
+``tree_from_jax`` for any other tree: an optimizer state, the CNN's
+parameters.
 """
 
 from __future__ import annotations
@@ -15,14 +17,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-
-
-def params_from_jax(np_params: Dict[str, np.ndarray],
-                    device) -> Dict[str, torch.Tensor]:
-    """``{name: array}`` (the reference's parameter dict, as numpy) → the
-    port's ``{name: tensor}`` on ``device``, bit for bit (dtype kept)."""
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
-            for k, v in np_params.items()}
 
 
 def _leaf_paths(tree, prefix=()):
@@ -40,6 +34,23 @@ def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def tree_from_jax(np_tree, device):
+    """Any nested dict of the reference's arrays (as numpy) → the same tree
+    of tensors on ``device``, bit for bit (dtype kept, bf16 included): an
+    optimizer state (velocity trees, adamw's step ``count``), the CNN's
+    parameter dict, a bare array."""
+    if isinstance(np_tree, dict):
+        return {k: tree_from_jax(v, device) for k, v in np_tree.items()}
+    return _tensor_from_numpy(np.asarray(np_tree)).to(device)
+
+
+def params_from_jax(np_params: Dict[str, np.ndarray],
+                    device) -> Dict[str, torch.Tensor]:
+    """``{name: array}`` (the reference's parameter dict, as numpy) → the
+    port's ``{name: tensor}`` on ``device``, bit for bit (dtype kept)."""
+    return tree_from_jax(dict(np_params), device)
 
 
 def model_params_from_jax(np_tree: dict, cfg, device) -> dict:

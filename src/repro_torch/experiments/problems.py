@@ -15,10 +15,9 @@ A problem object exposes what the replay engine needs:
   metric of a chunk of requests in one call.
 
 ``MLPProblem.init`` draws the reference's initial weights: the same
-``jax.random.normal`` stream, reproduced in numpy (``data/threefry.py``;
-within 3 ulps of the reference's values, most of them bitwise).  To start
-from the reference's exact weights, carry them across with
-``experiments/carry.py`` and pass them as ``driver.run(spec, init=...)``.
+``jax.random.normal`` stream, reproduced bitwise in numpy
+(``data/threefry.py``).  Weights from elsewhere are carried across with
+``experiments/carry.py`` and passed as ``driver.run(spec, init=...)``.
 """
 
 from __future__ import annotations

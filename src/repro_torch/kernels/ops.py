@@ -5,9 +5,19 @@ Mamba2 SSD scan and the RWKV6 WKV recurrence).
 The reference jit-compiles each wrapper and derives Pallas' interpret mode
 from the backend.  Here the device of the operands decides: a CUDA tensor
 launches the CUDA kernel, a CPU tensor runs its plain PyTorch version.
+
+The flash, ssm and wkv6 kernels have no backward (neither have the
+reference's Pallas kernels: ``jax.grad`` through them fails).  Their
+outputs are written by a foreign launch into fresh buffers, so autograd
+would see them as constants and the attention, mamba and rwkv weights
+would silently get no gradient.  So these wrappers raise when autograd is
+recording and an operand requires a gradient, on either device: training
+runs ``attn_impl="chunked"`` / ``"naive"`` and ``use_pallas=False``.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ps_update as _ps
@@ -15,9 +25,20 @@ from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import wkv6 as _wkv
 
 
+def _no_graph(name: str, *operands) -> None:
+    """Refuse to run a forward-only kernel inside an autograd graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name} has no backward: its outputs would carry no gradient "
+            f"to the weights.  Train with attn_impl='chunked' (or 'naive') "
+            f"and use_pallas=False, or call it under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) → (B, Sq, H, D) (see
     ``flash_attention.flash_attention``)."""
+    _no_graph("flash_attention", q, k, v)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -39,6 +60,7 @@ def ps_apply(w_flat, s_flat, g_flat, coef, lrs, *, spec,
 def ssm_scan(x, a, Bm, Cm, *, chunk: int = _ssm.DEFAULT_CHUNK):
     """Mamba2 SSD chunked scan from a zero state (see
     ``ssm_scan.ssm_scan``)."""
+    _no_graph("ssm_scan", x, a, Bm, Cm)
     return _ssm.ssm_scan(x, a, Bm, Cm, chunk=chunk)
 
 
@@ -47,4 +69,5 @@ def wkv6(r, k, v, w, u, *, chunk: int = _wkv.DEFAULT_CHUNK,
     """RWKV6 WKV recurrence from a zero state (see ``wkv6.wkv6``, which
     refuses an ``init_state`` other than None: the reference's wrapper
     drops it silently)."""
+    _no_graph("wkv6", r, k, v, w, u, init_state)
     return _wkv.wkv6(r, k, v, w, u, chunk=chunk, init_state=init_state)

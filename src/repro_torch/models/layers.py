@@ -14,8 +14,7 @@ reference's weights across instead, ``experiments/carry.py``).  ``lead``
 prefixes every leaf's shape, so the stacked per-unit parameters of a model
 are drawn in one call.
 
-Not ported here: ``layer_norm`` (no model calls it), the losses and
-``accuracy`` (training, ROADMAP.md queue 1 item 9).
+Not ported here: ``layer_norm`` (no model calls it).
 """
 
 from __future__ import annotations
@@ -145,3 +144,30 @@ def init_lm_head(gen, d_model: int, vocab: int, dtype,
                  device) -> torch.Tensor:
     return normal(gen, (d_model, vocab), dtype, device,
                   float(1.0 / np.sqrt(d_model)))
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean CE over (optionally masked) positions.  logits fp32 (..., V)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    pred = torch.argmax(logits, dim=-1)
+    correct = (pred == labels).to(torch.float32)
+    if mask is None:
+        return torch.mean(correct)
+    mask = mask.to(torch.float32)
+    return torch.sum(correct * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -15,11 +15,18 @@ the mamba state and convolution history, the rwkv state and token shifts)
 — never a broadcast view, whose units would share one storage — and
 ``model_decode_step`` writes them in place and returns the same dict.
 
-``RunConfig.remat`` and ``residual_spec`` steer training and sharding in the
-reference; the port's single-card inference path does not read them.
-Not ported yet: ``model_loss`` (training, ROADMAP.md queue 1 item 9), the
-audio and vision frontends and the moe blocks (queue 1 item 10; see
-``models/blocks.py``).
+Training (:func:`model_loss`) runs through autograd on the plain layers.
+With ``RunConfig.remat`` (the default) each unit is a
+``torch.utils.checkpoint`` region (``use_reentrant=False``), the
+reference's ``jax.checkpoint`` of its scan body: only a unit's input is
+kept for the backward, its inside recomputed.  The stacked unit leaves are
+``unbind``-ed once per forward, so the backward writes each stacked
+gradient once (an index per unit would add n_units full-size zero tensors).
+``attn_impl="pallas"`` and ``use_pallas`` have no backward, in the
+reference as here: :func:`model_loss` refuses them.  ``residual_spec``
+steers sharding in the reference; the single-card port does not read it.
+Not ported yet: the audio and vision frontends and the moe blocks (queue 1
+item 10; see ``models/blocks.py``).
 """
 
 from __future__ import annotations
@@ -27,13 +34,15 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, RunConfig
+from repro_torch.core.distributed import check_trainable
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (dtype_of, embed, init_embedding,
                                        init_lm_head, init_rms_norm, lm_head,
-                                       rms_norm)
+                                       rms_norm, softmax_cross_entropy)
 
 
 def _unit(tree, u: int):
@@ -41,6 +50,15 @@ def _unit(tree, u: int):
     if isinstance(tree, dict):
         return {k: _unit(v, u) for k, v in tree.items()}
     return tree[u]
+
+
+def _unit_trees(tree, n: int) -> list:
+    """The ``n`` per-unit trees of a stacked tree: every leaf ``unbind``-ed
+    once (views; one stacked gradient in the backward)."""
+    if isinstance(tree, dict):
+        per = {k: _unit_trees(v, n) for k, v in tree.items()}
+        return [{k: per[k][u] for k in tree} for u in range(n)]
+    return tree.unbind(0)
 
 
 def _check_model(cfg: ModelConfig) -> None:
@@ -110,13 +128,22 @@ def model_forward(cfg: ModelConfig, run: RunConfig, params: dict,
     shared = params.get("shared")
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(cfg.n_units):
-        unit_params = _unit(params["units"], u)
+
+    def unit_body(x, lb, zl, unit_params):
         for i, bt in enumerate(cfg.block_pattern):
             x, aux = B.block_forward(bt, cfg, run, unit_params[f"block_{i}"],
                                      shared, x, positions)
             lb = lb + aux["lb_loss"]
             zl = zl + aux["z_loss"]
+        return x, lb, zl
+
+    remat = run.remat and torch.is_grad_enabled()
+    for unit_params in _unit_trees(params["units"], cfg.n_units):
+        if remat:
+            x, lb, zl = checkpoint(unit_body, x, lb, zl, unit_params,
+                                   use_reentrant=False)
+        else:
+            x, lb, zl = unit_body(x, lb, zl, unit_params)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     head_w = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = _mask_padded(cfg, lm_head(x, head_w))
@@ -125,12 +152,32 @@ def model_forward(cfg: ModelConfig, run: RunConfig, params: dict,
 
 def _mask_padded(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     """Vocab is padded to a multiple of 256 (config.padded_vocab); padded
-    ids get -1e30 so argmax and sampling never see them.  Writes the fresh
-    logits tensor in place (the reference's ``where`` makes a copy, which at
-    a long prefill is gigabytes)."""
+    ids get -1e30 so CE, argmax and sampling never see them.  Writes the
+    fresh logits tensor in place (the reference's ``where`` makes a copy,
+    which at a long prefill is gigabytes).  Autograd takes the write: no
+    backward saved the tensor it overwrites, and the overwritten columns
+    pass exactly zero gradient back to the head, as the ``where`` does."""
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def model_loss(cfg: ModelConfig, run: RunConfig, params: dict,
+               batch: Dict[str, torch.Tensor], sample_weights=None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy (+ the blocks' aux losses).  ``batch`` carries labels
+    and loss_mask; ``sample_weights`` (B,) are per-sample loss weights (the
+    fused softsync engine's staleness-weighted gradient combination),
+    folded into the mask.  Raises on the forward-only kernel paths."""
+    check_trainable(run)
+    logits, aux = model_forward(cfg, run, params, batch)
+    mask = batch.get("loss_mask")
+    if sample_weights is not None:
+        w = sample_weights[:, None]
+        mask = w if mask is None else mask * w
+    ce = softmax_cross_entropy(logits, batch["labels"], mask)
+    loss = ce + aux["lb_loss"] + aux["z_loss"]
+    return loss, {"loss": loss, "ce": ce, **aux}
 
 
 # ---------------------------------------------------------------------------

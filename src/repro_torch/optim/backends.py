@@ -36,11 +36,12 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.optim import flatten
 from repro_torch.optim.flatten import tree_map
-from repro_torch.optim.spec import UpdateSpec, update_event
+from repro_torch.optim.spec import RoundFold, UpdateSpec, update_event
 
 BACKENDS = ("reference", "jit", "pallas")
 
@@ -126,26 +127,58 @@ def _adamw_event(spec: UpdateSpec, params, state, g32, lr):
     return tree_map(step, params, mu, nu), {"mu": mu, "nu": nu, "count": cnt}
 
 
+def _unzip(tree):
+    """A tree whose leaves are (a, b) pairs → (tree of a, tree of b)."""
+    if isinstance(tree, dict):
+        pairs = {k: _unzip(v) for k, v in tree.items()}
+        return ({k: a for k, (a, _) in pairs.items()},
+                {k: b for k, (_, b) in pairs.items()})
+    return tree
+
+
 def apply_single(spec: UpdateSpec, params, state, grad, lr):
     """ONE optimizer event with gradient tree ``grad`` and lr ``lr`` (a
-    float or a 0-dim fp32 tensor).  Returns new ``(params, state)``."""
-    g32 = _f32(grad)
+    float or a 0-dim fp32 tensor).  Returns new ``(params, state)``;
+    ``params`` may be nested dicts (a model's tree).  The update runs in
+    fp32 and rounds back to each leaf's dtype (bf16 leaves train with
+    fp32 state); gradients go to fp32 one leaf at a time, so a bf16
+    model's gradients are never all held in fp32 at once."""
+    f32 = torch.float32
     if spec.optimizer == "adamw":
-        return _adamw_event(spec, params, state, g32, lr)
+        return _adamw_event(spec, params, state, _f32(grad), lr)
     if spec.optimizer == "sgd":
         return tree_map(
-            lambda p, g: update_event(spec, p.to(torch.float32), None, g,
+            lambda p, g: update_event(spec, p.to(f32), None, g.to(f32),
                                       lr)[0].to(p.dtype),
-            params, g32), state
+            params, grad), state
     key = spec.state_keys[0]
-    out = tree_map(
-        lambda p, s, g: update_event(spec, p.to(torch.float32),
-                                     s.to(torch.float32), g, lr),
-        params, state[key], g32)
-    if not isinstance(params, dict):
-        return out[0].to(params.dtype), {key: out[1].to(state[key].dtype)}
-    return ({k: out[k][0].to(params[k].dtype) for k in params},
-            {key: {k: out[k][1].to(state[key][k].dtype) for k in params}})
+
+    def event(p, s, g):
+        w, s2 = update_event(spec, p.to(f32), s.to(f32), g.to(f32), lr)
+        return w.to(p.dtype), s2.to(s.dtype)
+    new_p, new_s = _unzip(tree_map(event, params, state[key], grad))
+    return new_p, {key: new_s}
+
+
+def apply_round_folded(spec: UpdateSpec, params, state, ghat,
+                       fold: RoundFold):
+    """Apply a whole round of c sequential momentum events in one shot,
+    given only their weighted-mean gradient ``ghat`` (the fused engine's
+    single backward pass): θ gets the exact affine fold, including the
+    ``v0_coef`` carry from the incoming velocity, and v advances by
+    (v_decay, v_gain)."""
+    if spec.optimizer != "momentum":
+        raise ValueError("apply_round_folded is momentum-only; other "
+                         "optimizers use apply_single with the folded lr")
+    total = float(np.sum(fold.theta_coef))
+    f32 = torch.float32
+
+    def event(p, g, v):
+        g = g.to(f32)
+        return ((p.to(f32) - total * g - fold.v0_coef * v).to(p.dtype),
+                fold.v_decay * v + fold.v_gain * g)
+    new_p, new_v = _unzip(tree_map(event, params, ghat, state["velocity"]))
+    return new_p, {"velocity": new_v}
 
 
 def apply_update_tree(spec: UpdateSpec, params, state, grads: Sequence,

@@ -57,9 +57,11 @@ def _leaves(tree: Tree):
     return [tree]
 
 
-def tree_device(tree: Tree) -> torch.device:
-    """The device of the tree's first leaf."""
-    return _leaves(tree)[0].device
+def tree_device(tree) -> torch.device:
+    """The device of the tree's first leaf (nested dicts followed down)."""
+    while isinstance(tree, dict):
+        tree = _leaves(tree)[0]
+    return tree.device
 
 
 def layout_of(tree: Tree) -> TreeLayout:

@@ -9,6 +9,10 @@
   bitwise on the card.
 * :func:`init_state`   — fp32 optimizer state, trees shaped like the
   parameters (adamw: two moments and a step counter).
+* :func:`sequential_fold` — the algebra that folds c *sequential* momentum
+  events (per-event LRs) into one affine update (:class:`RoundFold`), used
+  by the fused softsync engine (``core/distributed.py``).  Host float64
+  numpy, as in the reference, so bitwise the reference's.
 
 Two update modes (``combine`` / ``sequential``) are applied by
 ``backends.py``; the meaning is the reference's (DESIGN.md §3).
@@ -17,8 +21,9 @@ Two update modes (``combine`` / ``sequential``) are applied by
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.optim.flatten import tree_device, tree_map
@@ -95,3 +100,43 @@ def update_event(spec: UpdateSpec, w, s, g, lr):
         a = s + g * g
         return w - lr * g / (torch.sqrt(a) + spec.eps), a
     raise ValueError(f"update_event does not support {spec.optimizer!r}")
+
+
+# ---------------------------------------------------------------------------
+# Folding algebra: c sequential momentum events → one affine update.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RoundFold:
+    """One-shot equivalent of c sequential momentum events.
+
+    Sequential:  v_j = m·v_{j-1} + g_j ;  θ ← θ − lr_j·v_j   (j = 0..c−1)
+    folds exactly into
+
+        θ' = θ − Σ_i theta_coef_i·g_i − v0_coef·v
+        v' = v_decay·v + Σ_i m^{c−1−i}·g_i
+
+    ``v_gain`` = Σ_i m^{c−1−i} is the velocity gain when all g_i coincide
+    (the fused engine's single weighted-mean gradient); with distinct g_i
+    the velocity carry is a round-level approximation while the θ update
+    stays exact for round 1.
+    """
+
+    theta_coef: np.ndarray     # (c,) per-gradient θ coefficients
+    v0_coef: float             # θ's carry from the incoming velocity
+    v_decay: float             # m^c
+    v_gain: float              # Σ_i m^{c−1−i}
+
+
+def sequential_fold(lrs: Sequence[float], momentum: float) -> RoundFold:
+    """Fold per-event LRs + momentum into the affine round update."""
+    lrs = np.asarray(lrs, np.float64)
+    c = len(lrs)
+    m = float(momentum)
+    coef = np.zeros((c,))
+    for i in range(c):
+        for j in range(i, c):
+            coef[i] += lrs[j] * (m ** (j - i))
+    v0 = float(sum(lrs[j] * (m ** (j + 1)) for j in range(c)))
+    gain = float(sum(m ** (c - 1 - i) for i in range(c)))
+    return RoundFold(theta_coef=coef.astype(np.float64), v0_coef=v0,
+                     v_decay=m ** c, v_gain=gain)

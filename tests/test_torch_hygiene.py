@@ -7,9 +7,11 @@
 * The entry points run on the card unless the caller asks for the CPU:
   without a card, ``driver.run`` / ``driver.execute`` / ``engine.replay``
   (and the legacy oracle: ``simulate``, the baselines, ``engine="legacy"``;
-  and the serving path's ``init_model``, ``init_caches``,
-  ``init_serve_state``) called with no ``device=`` raise instead of
-  quietly using the CPU.
+  the serving path's ``init_model``, ``init_caches``,
+  ``init_serve_state``; the training path's ``train``, the train CLI,
+  ``PrefetchIterator`` and the ``cnn`` cell's ``init_cnn`` and
+  ``compute``) called with no ``device=`` raise instead of quietly using
+  the CPU.
 """
 
 import ast
@@ -82,7 +84,10 @@ def test_port_file_list_is_complete():
                      "configs/internvl2_2b.py", "configs/hubert_xlarge.py",
                      "configs/qwen3_14b.py", "configs/starcoder2_7b.py",
                      "configs/llama4_maverick_400b_a17b.py",
-                     "configs/llama3_405b.py", "configs/arctic_480b.py"):
+                     "configs/llama3_405b.py", "configs/arctic_480b.py",
+                     "core/distributed.py", "data/pipeline.py",
+                     "checkpoint/io.py", "train/loop.py", "launch/train.py",
+                     "experiments/cells/cnn_fig5.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",
@@ -109,6 +114,10 @@ def test_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "import repro_torch.experiments.campaign\n"
             "import repro_torch.experiments.validate\n"
             "import repro_torch.experiments.smoke\n"
+            "import repro_torch.core.distributed, repro_torch.train.loop\n"
+            "import repro_torch.data.pipeline, repro_torch.checkpoint.io\n"
+            "import repro_torch.launch.train\n"
+            "import repro_torch.experiments.cells.cnn_fig5\n"
             "from repro_torch.experiments.registry import cell_names\n"
             "cell_names()\n"
             "from repro_torch.configs import get_config\n"
@@ -224,3 +233,28 @@ def test_sweep_and_campaign_default_to_cuda_and_raise_without_card(
                           results_dir=str(tmp_path))
     res = run_sweep([_spec()], device="cpu")
     assert res[0].runtime["replay_path"] == "sequential"
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_card(
+        no_card, tmp_path):
+    from repro_torch.config import ModelConfig, RunConfig
+    from repro_torch.experiments.cells import cnn_fig5
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.loop import train
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=32,
+                      n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
+                      dtype="float32")
+    run = RunConfig(protocol="hardsync", n_learners=2, minibatch=1)
+    for call in (lambda: train(cfg, run, steps=1, batch=2, seq=8),
+                 lambda: cnn_fig5.init_cnn(0),
+                 lambda: cnn_fig5.compute(updates=1),
+                 lambda: train_cli.main(["--arch", "qwen2-1.5b", "--smoke",
+                                         "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    res = train(cfg, run, steps=1, batch=2, seq=8, device="cpu")
+    assert res.steps == 1
+    train_cli.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+                    "--protocol", "hardsync", "--steps", "1", "--batch", "2",
+                    "--seq", "8", "--ckpt", str(tmp_path)])
+    assert (tmp_path / "checkpoint.npz").is_file()
