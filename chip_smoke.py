@@ -31,8 +31,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    qwen2_1_5b's GQA (H = 12 over KV = 2, D = 128) and a ragged S = 1 000:
    causal, causal with a window of 48, and non-causal, fp32 (the 3×TF32
    kernel) and bf16 (the sm90 kernel), once through the (B, KV, G, S, D)
-   entry with Sq ≠ Sk, at D 64, at Sq 201 against Sk 777, and at
-   zamba2_7b's attention (H = KV = 32, D = 112), causal.  Tolerance: 2e-5
+   entry with Sq ≠ Sk, at D 64, at Sq 201 against Sk 777, at
+   zamba2_7b's attention (H = KV = 32, D = 112), causal, at the groupings
+   phase 15 launches — G 5 (llama4, qwen3), 7 (arctic) and 9 (starcoder2)
+   causal, G 1 non-causal, at D 128 — and, in bf16 only (the sm90 kernel;
+   the fp32 kernel is not built for D 80), at hubert_xlarge's attention
+   (H = KV = 16, D 80, non-causal).  Tolerance: 2e-5
    absolute in fp32 (3×TF32 products err by ~2⁻²¹ relative, exp and the
    summation order differ, FMAs allowed); in
    bf16 2⁻⁸ · max|v| over the (b, kv head)'s keys + one bf16 ulp of the
@@ -150,10 +154,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    per cell.
 12. The rest of the paper campaign through ``campaign.run_cell`` on the
    card at the cells' default params, into a temporary results directory,
-   each cell also run on the CPU at the same params (every CPU twin at the
+   each cell also run on the CPU at the same params, in two worker
+   processes while the card runs the cells (every CPU twin at the
    default params — fig5 4.4, fig6_7 25.2, table2 11.9, baselines 8.2,
-   table3_4 42.8 s on the host of one NVIDIA H100 80GB HBM3, 700.00 W —
-   so none runs at ``quick_params``):
+   table3_4 42.8 s on the host of one NVIDIA H100 80GB HBM3, 700.00 W, 90.1
+   s on a slower one — so none runs at ``quick_params``):
    ``table1`` and ``fig8`` (analytic) with ``derived`` equal to the
    envelope's and the CPU run's exactly; ``fig4`` (measure mode) with every
    record's schedule side equal to the envelope's and no launch; the replay
@@ -240,34 +245,75 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    at 30 updates on the card and on the CPU, each test error within
    ``CNN_SPREAD`` (2) of the 512 test samples of the CPU's (the spread
    one-ulp changes of every initial weight give it on the CPU, 0, + 2).
+15. MoE and the modality frontends (``tools/moe_probe.py`` runs this
+   phase alone, after phase 3's flash checks).  All bf16, weights from a
+   seeded ``torch.Generator`` on the card, ``attn_impl="pallas",
+   use_pallas=True``, each model freed before the next; each prints its
+   parameters and bytes, the draw's peak, two ``prefill_step`` runs at
+   8 192 positions (tokens/s; flash launches exactly one per attention
+   layer, all through the sm90 kernel; finite logits), decode tokens/s
+   and peak memory (under 80 GB).  15a: llama4_maverick_400b_a17b at full
+   width (d 5 120, 40 heads over 8, 128 experts top-1, moe_d_ff 8 192,
+   vocab 202 240 padded) cut to one unit (a dense attention block and an
+   MoE block, 18.4 G parameters: two units would not fit 80 GB), its
+   dropped fraction per MoE layer, ``generate`` (B 4, 16 + 32 tokens) and
+   ``ContinuousBatchingEngine`` (6 requests in 4 slots).  15b: arctic_480b
+   at full width (d 7 168, 56 heads over 8, top-2 of 128, moe_d_ff 4 864)
+   cut to 2 ``moe_dense`` layers (27.7 G parameters), the same.  15c:
+   qwen3_14b (40 layers) and starcoder2_7b (32 layers) at full width and
+   depth: the same but the batching engine (dropped when the script ran
+   past 1 050 s), with phase 8's bf16 prefill-vs-decode-replay check
+   (reported).  15d: hubert_xlarge (48 non-causal layers, frames in) and
+   internvl2_2b (24 layers, 256 patches before 7 936 tokens) at full
+   width and depth: the forward only (hubert is encoder-only).  15e: the
+   MoE configs at a reduced width in fp32 (``REDUCED``: d 640 and 896, the
+   G of each, 128 experts), ``prefill_step`` (B 2 × S 512) and
+   ``generate`` (B 4, 16 + 16) on the card against the same calls on the
+   CPU (plain versions): routing first — every token routed differently
+   must have a router gap (k-th to (k+1)-th logit) under ``ROUTER_TOL``
+   (1e-4) on a side, each such token ambiguous and counted; positions
+   before the first ambiguity of their row (a prefill group is one row; a
+   decode group is the whole step) held within ``LOGIT_TOL`` (1e-3), the
+   generated tokens before the first ambiguous call (or greedy near-tie)
+   equal.  15f: ``python -m repro_torch.launch.dryrun --arch
+   llama4-maverick-400b-a17b --shape prefill_32k`` as a subprocess (exit
+   0, its JSON row printed), then ``dryrun_one`` of 15a's own prefill on a
+   1 × 1 mesh: its parameter bytes must equal the tree 15a drew on the
+   card (``count_params`` × 2 + the fp32 router's two more bytes an
+   element), printed beside 15a's measured peak and time.
 
 Launch counts are zeroed just before each main-path phase (4, 4b, 5, 5b,
 5c, 6, each run of phases 8–10, each cell of phases 11–13 and each SPMD
-case of phase 13, in every rank, each case of phase 14) and read just
-after it; they must equal the update counts (phases 8–10: one
-kernel launch per attention, mamba or rwkv layer of a prefill forward,
-none in decode); flash launches are also counted per kernel
+case of phase 13, in every rank, each case of phase 14, each prefill of
+phase 15) and read just after it; they must equal the update counts
+(phases 8–10, 15: one kernel launch per attention, mamba or rwkv layer of
+a prefill forward, none in decode); flash launches are also counted per
+kernel
 (``flash_sm90``, ``flash_tf32x3``).  The ``kernels`` line adds every
 phase-12 and phase-13 cell's launches but the ``kernels`` cell's, which
 holds each kernel against a plain chain, phase 13's SPMD launches
 summed over ranks (the ``ring`` cell's children count their own) and
 phase 14's ``ps_apply`` (14b and 14e).
 
-Time budget: the whole script took 837.9 s on one NVIDIA H100 80GB HBM3,
-700.00 W (phase 12 330.1 s, card runs and CPU twins; phase 13 132.0 s;
-phase 14 123.7 s, ~30 s of it writing three 7.1 GB checkpoints), inside
-a 1 200 s limit.  Its time follows the host: phases 1–13 took
-593.8–717.4 s before phase 14 was added (phase 12 265.6–347.7 s).
+Time budget: the whole script took 1 115.2 s on one NVIDIA H100 80GB
+HBM3, 700.00 W, on a slow host (phase 12 423.9 s with its CPU twins one
+after another; phase 13 166.7 s; phase 14 141.7 s; phase 15 100.4 s),
+inside a 1 200 s limit but past 1 050 s: so phase 12's CPU twins now run
+in worker processes beside the card's cells (161 s of twins in that run)
+and 15c serves without the batching engine.  Its time follows the host:
+744.2–846.8 s before phase 15 was added (phase 12 265.6–364.4 s).
 """
 
 import dataclasses
 import functools
 import json
 import math
+import multiprocessing
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1077,7 +1123,14 @@ FLASH_CELLS = (   # (B, Sq, Sk, H, KV, D, causal, window, bkgsd entry)
     (2, 1000, 1000, 8, 2, 64, True, 0, False),
     (2, 201, 777, 12, 2, 128, False, 0, False),
     (2, 1000, 1000, 32, 32, 112, True, 0, False),     # zamba2's attention
+    (2, 1000, 1000, 10, 2, 128, True, 0, False),      # G 5: llama4, qwen3
+    (2, 1000, 1000, 14, 2, 128, True, 0, False),      # G 7: arctic
+    (2, 1000, 1000, 18, 2, 128, True, 0, False),      # G 9: starcoder2
+    (2, 1000, 1000, 4, 4, 128, False, 0, False),      # G 1 non-causal
 )
+# bf16 only (the sm90 kernel; the fp32 kernel is not built for D 80):
+# hubert_xlarge's attention, 16 heads of D 80, non-causal
+FLASH_CELLS_BF16 = ((2, 1000, 1000, 16, 16, 80, False, 0, False),)
 
 
 def flash_inputs(B, Sq, Sk, H, KV, D, dtype, seed, dev):
@@ -1140,8 +1193,10 @@ def phase_flash_vs_plain(dev) -> dict:
     by its row in the ``kernels`` line (``FLASH_ROWS``)."""
     import torch
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for B, Sq, Sk, H, KV, D, causal, window, bkgsd in FLASH_CELLS:
-        for dtype in (torch.float32, torch.bfloat16):
+    cells = ([(c, (torch.float32, torch.bfloat16)) for c in FLASH_CELLS]
+             + [(c, (torch.bfloat16,)) for c in FLASH_CELLS_BF16])
+    for (B, Sq, Sk, H, KV, D, causal, window, bkgsd), dtypes in cells:
+        for dtype in dtypes:
             q, k, v = flash_inputs(B, Sq, Sk, H, KV, D, dtype, 14, dev)
             what = (f"flash_attention B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
                     f"D={D} causal={causal} window={window} "
@@ -1667,7 +1722,9 @@ def expected_params(cfg) -> int:
     counts the unpadded vocab (embedding and head), no final norm, two
     norms and no convolution biases per mamba block (the tree has one norm
     and Din + 2N biases), and seven d_model vectors per rwkv block (the
-    tree has eight: five token-shift mixes, mu_ck, decay_w0, ln_x_scale)."""
+    tree has eight: five token-shift mixes, mu_ck, decay_w0, ln_x_scale),
+    no qk-norm scales (the tree has two of d_head per attention block)
+    and no frontend projection (the tree has M × M)."""
     M = cfg.d_model
     per_unit = 0
     for b in cfg.block_pattern:
@@ -1675,18 +1732,21 @@ def expected_params(cfg) -> int:
             per_unit += cfg.ssm_d_inner + 2 * cfg.ssm_state - M
         elif b == "rwkv":
             per_unit += M
+        elif cfg.qk_norm:                                # q_norm, k_norm
+            per_unit += 2 * cfg.d_head
+    front = M * M if cfg.frontend != "none" else 0     # frontend_proj
     return (cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab_size) * M
-            + M + cfg.n_units * per_unit)
+            + M + cfg.n_units * per_unit + front)
 
 
 def forward_launches(cfg) -> dict:
     """Kernel launches of one prefill forward: one flash_attention per
-    attention layer (zamba2's shared ones too) — all through the sm90
-    kernel in bf16, the 3×TF32 one in fp32 —, one ssm_scan per mamba
-    layer, one wkv6 per rwkv layer."""
+    attention layer (zamba2's shared ones and the MoE blocks' too) — all
+    through the sm90 kernel in bf16, the 3×TF32 one in fp32 —, one
+    ssm_scan per mamba layer, one wkv6 per rwkv layer."""
     def n(*types):
         return cfg.n_units * sum(b in types for b in cfg.block_pattern)
-    attn = n("attn", "shared_attn")
+    attn = n("attn", "shared_attn", "moe", "moe_dense")
     bf16 = cfg.dtype == "bfloat16"
     return {"flash_attention": attn, "flash_sm90": attn if bf16 else 0,
             "flash_tf32x3": 0 if bf16 else attn,
@@ -2001,6 +2061,9 @@ ANALYTIC_CELLS = ("table1", "fig8")
 REPLAY_CELLS = ("fig5", "fig6_7", "table2")
 LEGACY_CELLS = ("baselines", "table3_4")
 TIMING_CELLS = ("sim_engine", "kernels", "bench_guard")
+# worker processes for the CPU twins (the longest, table3_4's, takes about
+# as long as all the others together)
+CPU_TWIN_WORKERS = 2
 # run order: sim_engine before table3_4, whose summary folds it in;
 # bench_guard runs in phase 13, after the distributed cell it measures too
 PHASE12_CELLS = ANALYTIC_CELLS + ("fig4",) + REPLAY_CELLS + (
@@ -2142,11 +2205,9 @@ def phase_paper_cells(dev, launches, keep):
     """Phase 12: the rest of the paper campaign and the smoke campaign
     through ``campaign.run_cell`` on the card (see the module docstring);
     sim_engine's card envelope is copied to ``keep``."""
-    import shutil
     import tempfile
 
     from repro_torch.experiments import campaign, registry
-    from repro_torch.experiments.cells import bench_guard
 
     with tempfile.TemporaryDirectory(prefix="results_torch_") as tmp:
         def on_card(name, **kw):
@@ -2155,94 +2216,121 @@ def phase_paper_cells(dev, launches, keep):
             return (registry.load_envelope(name, str(Path(tmp) / "card")),
                     secs, counts)
 
-        def on_cpu(name):
-            t0 = time.perf_counter()
-            campaign.run_cell(name, results_dir=str(Path(tmp) / "cpu"),
-                              device="cpu")
-            return (registry.load_envelope(name, str(Path(tmp) / "cpu")),
-                    time.perf_counter() - t0)
+        # the CPU twins run in worker processes while the card runs the
+        # cells, the longest first, each into a directory of its own
+        twins = sorted((n for n in PHASE12_CELLS
+                        if n not in TIMING_CELLS and n != "fig4"),
+                       key=lambda n: n not in ("table3_4", "fig6_7"))
+        pool = ProcessPoolExecutor(
+            max_workers=CPU_TWIN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"))
+        cpu_runs = {n: pool.submit(cpu_twin, n, str(Path(tmp) / "cpu" / n))
+                    for n in twins}
+        try:
+            phase12_loop(dev, launches, keep, tmp, on_card, cpu_runs)
+        finally:
+            pool.shutdown(cancel_futures=True)
 
-        for name in PHASE12_CELLS:
-            cell = registry.get_cell(name)
-            if name in TIMING_CELLS:
-                timing_cell(name, on_card, launches, bench_guard)
-                if name == "sim_engine":
-                    shutil.copy(registry.results_path(
-                        cell, str(Path(tmp) / "card")), keep)
-                continue
-            ref = json.loads((ROOT / "benchmarks" / "results"
-                              / f"{cell.result}.json").read_text())
-            env, secs, counts = on_card(name)
-            cpu_env = cpu_secs = None
-            if name != "fig4":
-                cpu_env, cpu_secs = on_cpu(name)
-            claims = held_claims(name, env, cpu_env)
-            tol = PAPER_ENVELOPE_TOL.get(name)
-            if name in ANALYTIC_CELLS:
-                derived = json.loads(json.dumps(env["derived"]))
-                if derived != ref["derived"] or \
-                        derived != cpu_env["derived"]:
-                    raise AssertionError(f"phase 12 {name}: derived differs "
-                                         f"from the envelope's or the CPU's")
-                expect(counts, f"phase 12 {name}")
-                note = "derived equal to the envelope's and the CPU run's"
-            elif name == "fig4":
-                held_records(name, env, ref, 0.0)
-                expect(counts, f"phase 12 {name}")
-                note = (f"{len(env['records'])} measure records, schedule "
-                        f"sides equal to the envelope's; no launches")
-            elif name in REPLAY_CELLS:
-                worst = held_records(name, env, ref, tol)
-                worst_cpu = held_against_cpu(name, env, cpu_env)
-                events = replay_events(env)
-                expect(counts, f"phase 12 {name}", ring_apply=events)
-                launches["ring_apply"] += counts["ring_apply"]
-                paths = {}
-                for r in env["records"]:
-                    p = r["runtime"]["replay_path"]
-                    paths[p] = paths.get(p, 0) + 1
-                note = (f"{len(env['records'])} records ({paths}), schedule "
-                        f"sides equal to the envelope's; ring_apply "
-                        f"{counts['ring_apply']} (reckoned {events}), "
-                        f"{counts['ring_apply'] / secs:.1f} events/s; max "
-                        f"|card - envelope| {worst} (tolerance {tol}); max "
-                        f"|card - cpu| {worst_cpu} (tolerance "
-                        f"{CARD_VS_CPU_TOL}; CHAOTIC records their own)")
-            else:
-                # the cell module's reckoning of its host-PS updates
-                reckon = sys.modules[cell.compute.__module__].ps_updates
-                own = (TABLE3_4_OWN if name == "table3_4"
-                       else tuple(ref["derived"]))
-                worst = held_derived(
-                    env["derived"], {k: ref["derived"][k] for k in own
-                                     if k in ref["derived"]},
-                    tol, f"phase 12 {name} against the envelope")
-                worst_cpu = held_derived(
-                    env["derived"], {k: cpu_env["derived"][k] for k in own},
-                    CARD_VS_CPU_TOL, f"phase 12 {name} against the CPU")
-                want = reckon(**cell.resolved_params())
-                expect(counts, f"phase 12 {name}", ps_apply=want)
-                launches["ps_apply"] += counts["ps_apply"]
-                note = (f"ps_apply {counts['ps_apply']} (reckoned {want}, "
-                        f"the host-PS updates of its simulations), "
-                        f"{counts['ps_apply'] / secs:.1f} updates/s; max "
-                        f"|card - envelope| {worst} (tolerance {tol}); max "
-                        f"|card - cpu| {worst_cpu} (tolerance "
-                        f"{CARD_VS_CPU_TOL})")
-            log(f"  {name}: {secs:.1f} s; claims {claims}; {note}"
-                + (f"; the CPU run {cpu_secs:.1f} s" if cpu_secs else ""))
 
-        # the smoke campaign twice: the second pass all cache hits
-        first, secs, counts = counted(lambda: campaign.run_campaign(
-            "smoke", results_dir=str(Path(tmp) / "smoke"), device=dev))
-        second = campaign.run_campaign(
-            "smoke", results_dir=str(Path(tmp) / "smoke"), device=dev)
-        if first["failed_claims"] or first["executed"] != 3 or \
-                second["cached"] != 3 or second["executed"]:
-            raise AssertionError(f"phase 12 smoke: {first} then {second}")
-        launches["ring_apply"] += counts["ring_apply"]
-        log(f"  smoke: 3 cells executed in {secs:.1f} s (ring_apply "
-            f"{counts['ring_apply']}), then 3 of 3 cache hits")
+def cpu_twin(name, results_dir):
+    """One phase-12 cell on the CPU, in a worker process (torch's default
+    threads, as the twins had in this process): (its envelope, seconds)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.experiments import campaign, registry
+    t0 = time.perf_counter()
+    campaign.run_cell(name, results_dir=results_dir, device="cpu")
+    return (registry.load_envelope(name, results_dir),
+            time.perf_counter() - t0)
+
+
+def phase12_loop(dev, launches, keep, tmp, on_card, cpu_runs):
+    """Phase 12's cells on the card, each held against its CPU twin from
+    ``cpu_runs`` (futures), then the smoke campaign."""
+    import shutil
+
+    from repro_torch.experiments import campaign, registry
+    from repro_torch.experiments.cells import bench_guard
+    for name in PHASE12_CELLS:
+        cell = registry.get_cell(name)
+        if name in TIMING_CELLS:
+            timing_cell(name, on_card, launches, bench_guard)
+            if name == "sim_engine":
+                shutil.copy(registry.results_path(
+                    cell, str(Path(tmp) / "card")), keep)
+            continue
+        ref = json.loads((ROOT / "benchmarks" / "results"
+                          / f"{cell.result}.json").read_text())
+        env, secs, counts = on_card(name)
+        cpu_env = cpu_secs = None
+        if name != "fig4":
+            cpu_env, cpu_secs = cpu_runs[name].result()
+        claims = held_claims(name, env, cpu_env)
+        tol = PAPER_ENVELOPE_TOL.get(name)
+        if name in ANALYTIC_CELLS:
+            derived = json.loads(json.dumps(env["derived"]))
+            if derived != ref["derived"] or \
+                    derived != cpu_env["derived"]:
+                raise AssertionError(f"phase 12 {name}: derived differs "
+                                     f"from the envelope's or the CPU's")
+            expect(counts, f"phase 12 {name}")
+            note = "derived equal to the envelope's and the CPU run's"
+        elif name == "fig4":
+            held_records(name, env, ref, 0.0)
+            expect(counts, f"phase 12 {name}")
+            note = (f"{len(env['records'])} measure records, schedule "
+                    f"sides equal to the envelope's; no launches")
+        elif name in REPLAY_CELLS:
+            worst = held_records(name, env, ref, tol)
+            worst_cpu = held_against_cpu(name, env, cpu_env)
+            events = replay_events(env)
+            expect(counts, f"phase 12 {name}", ring_apply=events)
+            launches["ring_apply"] += counts["ring_apply"]
+            paths = {}
+            for r in env["records"]:
+                p = r["runtime"]["replay_path"]
+                paths[p] = paths.get(p, 0) + 1
+            note = (f"{len(env['records'])} records ({paths}), schedule "
+                    f"sides equal to the envelope's; ring_apply "
+                    f"{counts['ring_apply']} (reckoned {events}), "
+                    f"{counts['ring_apply'] / secs:.1f} events/s; max "
+                    f"|card - envelope| {worst} (tolerance {tol}); max "
+                    f"|card - cpu| {worst_cpu} (tolerance "
+                    f"{CARD_VS_CPU_TOL}; CHAOTIC records their own)")
+        else:
+            # the cell module's reckoning of its host-PS updates
+            reckon = sys.modules[cell.compute.__module__].ps_updates
+            own = (TABLE3_4_OWN if name == "table3_4"
+                   else tuple(ref["derived"]))
+            worst = held_derived(
+                env["derived"], {k: ref["derived"][k] for k in own
+                                 if k in ref["derived"]},
+                tol, f"phase 12 {name} against the envelope")
+            worst_cpu = held_derived(
+                env["derived"], {k: cpu_env["derived"][k] for k in own},
+                CARD_VS_CPU_TOL, f"phase 12 {name} against the CPU")
+            want = reckon(**cell.resolved_params())
+            expect(counts, f"phase 12 {name}", ps_apply=want)
+            launches["ps_apply"] += counts["ps_apply"]
+            note = (f"ps_apply {counts['ps_apply']} (reckoned {want}, "
+                    f"the host-PS updates of its simulations), "
+                    f"{counts['ps_apply'] / secs:.1f} updates/s; max "
+                    f"|card - envelope| {worst} (tolerance {tol}); max "
+                    f"|card - cpu| {worst_cpu} (tolerance "
+                    f"{CARD_VS_CPU_TOL})")
+        log(f"  {name}: {secs:.1f} s; claims {claims}; {note}"
+            + (f"; the CPU run {cpu_secs:.1f} s" if cpu_secs else ""))
+
+    # the smoke campaign twice: the second pass all cache hits
+    first, secs, counts = counted(lambda: campaign.run_campaign(
+        "smoke", results_dir=str(Path(tmp) / "smoke"), device=dev))
+    second = campaign.run_campaign(
+        "smoke", results_dir=str(Path(tmp) / "smoke"), device=dev)
+    if first["failed_claims"] or first["executed"] != 3 or \
+            second["cached"] != 3 or second["executed"]:
+        raise AssertionError(f"phase 12 smoke: {first} then {second}")
+    launches["ring_apply"] += counts["ring_apply"]
+    log(f"  smoke: 3 cells executed in {secs:.1f} s (ring_apply "
+        f"{counts['ring_apply']}), then 3 of 3 cache hits")
 
 
 def timing_cell(name, on_card, launches, bench_guard):
@@ -2957,6 +3045,441 @@ def phase_training(dev, launches, keep):
     log(f"  14e in {time.perf_counter() - t:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: MoE and the modality frontends at full width, the dry-run
+# ---------------------------------------------------------------------------
+# 15a / 15b: the MoE configs at full width, cut in depth to fit one card
+# (llama4: one unit, a dense attention block and an MoE block, 18.4 G
+# parameters; two units would be 69.5 GB before activations.  arctic: two
+# moe_dense layers, 27.7 G parameters); 15c / 15d: full width and depth.
+# (phase, architecture, depth cut or None, what runs: "serve" the prefill,
+# generate and continuous batching; "generate" without the batching (15c:
+# the script ran past 1 050 s with it, see the module docstring);
+# "forward" the prefill alone)
+PHASE15 = (("15a", "llama4_maverick_400b_a17b", 1, "serve"),
+           ("15b", "arctic_480b", 2, "serve"),
+           ("15c", "qwen3_14b", None, "generate"),
+           ("15c", "starcoder2_7b", None, "generate"),
+           ("15d", "hubert_xlarge", None, "forward"),
+           ("15d", "internvl2_2b", None, "forward"))
+# 15e, the MoE configs at a reduced width in fp32 on the card against the
+# same calls on the CPU (plain versions).  A token is ambiguous when its
+# router logits' gap between the k-th and (k+1)-th expert is under
+# ROUTER_TOL — fp32 sums in another order move a router logit by ~1e-6 at
+# these widths, so a gap of 1e-4 cannot flip; a greedy token is ambiguous
+# when its top-two logits are within LOGIT_TOL.  Rows before the first
+# ambiguity of their batch row (and, in decode, of the step: one routing
+# group holds the whole batch) are held within LOGIT_TOL, every routing
+# difference must fall on an ambiguous token, and held greedy tokens must
+# be equal.  Written before the first run; the seed is not chosen.
+ROUTER_TOL = 1e-4
+LOGIT_TOL = 1e-3
+REDUCED = {   # d_head 64 keeps each config's grouping G (5 and 7)
+    "llama4_maverick_400b_a17b": dict(
+        d_model=640, n_heads=10, n_kv_heads=2, d_head=64, d_ff=1024,
+        moe_d_ff=512, vocab_size=8192, n_layers=2, n_units=1),
+    "arctic_480b": dict(
+        d_model=896, n_heads=14, n_kv_heads=2, d_head=64, d_ff=1024,
+        moe_d_ff=512, vocab_size=8192, n_layers=2, n_units=2),
+}
+PREFILL_S = 8192
+
+
+def phase15_cfg(arch, units):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if units is not None:
+        cfg = dataclasses.replace(
+            cfg, n_units=units, n_layers=units * len(cfg.block_pattern))
+    return cfg
+
+
+class MoeRecorder:
+    """Wraps ``models.moe.moe_forward`` while active: each call's routing
+    (experts, keep, the router logits' k-th to (k+1)-th gap; on the host)
+    and its dropped fraction, in call order.  Reading them syncs, so
+    timed runs go without it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = orig = moe.moe_forward
+
+        def wrapped(cfg, p, x):
+            import torch
+            r = moe.route(cfg, p, x)
+            k = cfg.top_k
+            top = torch.topk(r["logits"], k + 1, dim=-1).values
+            out, aux = orig(cfg, p, x)
+            self.calls.append({
+                "shape": tuple(x.shape[:2]), "idx": r["idx"].cpu(),
+                "keep": r["keep"].cpu(),
+                "gap": (top[..., k - 1] - top[..., k]).cpu(),
+                "dropped": float(aux["dropped_fraction"])})
+            return out, aux
+        moe.moe_forward = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_forward = self._orig
+
+
+def phase15_inputs(cfg, gen, dev, S):
+    """A prefill batch of S positions from ``gen``: frames (audio), 256
+    patches + S − 256 tokens (vision), or tokens."""
+    import torch
+    from repro_torch.models.layers import dtype_of
+    dt = dtype_of(cfg.dtype)
+    if cfg.frontend == "audio":
+        return {"frames": torch.randn((1, S, cfg.d_model), generator=gen,
+                                      device=dev, dtype=dt)}
+    n = S - cfg.n_prefix_embeds if cfg.frontend == "vision" else S
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, n),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.randn(
+            (1, cfg.n_prefix_embeds, cfg.d_model), generator=gen,
+            device=dev, dtype=dt)
+    return batch
+
+
+def phase15_model(phase, arch, units, what, dev, launches):
+    """One model of 15a–15d: init from a seeded generator on the card,
+    prefill_step at 8 192 positions (flash launches exact), then, unless
+    ``what`` is "forward", the bf16 prefill-vs-decode check (dense models)
+    and ``generate``, and for "serve" ``ContinuousBatchingEngine``; peak
+    memory.  Returns its numbers."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.models import count_params, init_model
+    from repro_torch.serve.engine import generate, prefill_step
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine
+    cfg = phase15_cfg(arch, units)
+    run = RunConfig(attn_impl="pallas", use_pallas=True)
+    per_forward = forward_launches(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n = count_params(params)
+    if n != expected_params(cfg):
+        raise AssertionError(f"phase {phase} {arch}: {n} parameters, "
+                             f"expected {expected_params(cfg)}")
+    nbytes = sum(t.numel() * t.element_size() for t in flat_tree(
+        params).values())
+    init_peak = torch.cuda.max_memory_allocated()
+    log(f"  {arch}: {cfg.n_layers} layers {cfg.block_pattern} x "
+        f"{cfg.n_units}{' (depth cut)' if units else ''}, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads} over {cfg.n_kv_heads} (G "
+        f"{cfg.n_heads // cfg.n_kv_heads}), d_ff {cfg.d_ff}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}, moe_d_ff "
+           f"{cfg.moe_d_ff}" if cfg.n_experts else "")
+        + f", vocab {cfg.padded_vocab} (padded), causal {cfg.causal}, "
+        f"frontend {cfg.frontend}: {n} parameters, {nbytes} bytes, drawn "
+        f"in {time.perf_counter() - t0:.2f} s (peak {init_peak / 2**30:.2f}"
+        f" GiB); flash launches per prefill forward "
+        f"{per_forward['flash_attention']}")
+    out = {"arch": arch, "params": n, "param_bytes": nbytes}
+
+    # 1. prefill at 8 192 positions, after a short warm-up
+    prefill_step(cfg, run, params, phase15_inputs(cfg, gen, dev, 512))
+    batch = phase15_inputs(cfg, gen, dev, PREFILL_S)
+    secs_all = []
+    for rep in range(2):
+        logits, secs, counts = counted(lambda: prefill_step(cfg, run, params,
+                                                            batch))
+        add_launches(launches, counts)
+        expect(counts, f"phase {phase} {arch} prefill", **per_forward)
+        if tuple(logits.shape) != (1, PREFILL_S, cfg.padded_vocab) or \
+                not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+            raise AssertionError(f"phase {phase} {arch}: bad prefill logits")
+        secs_all.append(secs)
+        log(f"  prefill_step B=1 S={PREFILL_S} (run {rep + 1}): {secs:.4f} "
+            f"s, {PREFILL_S / secs:.1f} tokens/s; flash launches "
+            f"{counts['flash_attention']} (sm90 {counts['flash_sm90']}); "
+            f"logits finite, {tuple(logits.shape)}")
+        del logits
+    out["prefill_s"] = min(secs_all)
+    if cfg.n_experts:
+        with MoeRecorder() as rec:
+            prefill_step(cfg, run, params, batch)
+        log(f"  dropped_fraction per MoE layer at S={PREFILL_S}: "
+            f"{[round(c['dropped'], 6) for c in rec.calls]}")
+    del batch
+    torch.cuda.empty_cache()
+    out["prefill_peak"] = torch.cuda.max_memory_allocated()
+    if what == "forward":
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  encoder / forward only: no decode; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        out["peak"] = peak
+        del params
+        torch.cuda.empty_cache()
+        return out
+
+    def tokens(B, S):
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    if not cfg.n_experts:
+        # prefill vs decode replay vs the plain versions, as phase 8 (bf16,
+        # reported; an MoE model routes a prefill and a decode step in
+        # other groups by design, so 15e holds those against the CPU)
+        consistency(cfg, params, tokens(2, 64), launches, dev, "bf16",
+                    phase)
+
+    # 2. greedy generation: B 4, 16 prompt tokens, 32 new
+    prompt = tokens(4, 16)
+    gout, gsecs, counts = counted(lambda: generate(cfg, run, params, prompt,
+                                                   32))
+    expect(counts, f"phase {phase} {arch} generate")
+    if tuple(gout.shape) != (4, 32) or not bool(
+            ((gout >= 0) & (gout < cfg.vocab_size)).all()):
+        raise AssertionError(f"phase {phase} {arch}: bad generated tokens")
+    out["decode_tps"] = 4 * 48 / gsecs
+    log(f"  generate B=4, 16 + 32 tokens: {gsecs:.3f} s for 48 decode "
+        f"steps, {4 * 48 / gsecs:.1f} tokens/s decoded; first row "
+        f"{gout[0, :8].tolist()}")
+
+    # 3. continuous batching: 6 requests into 4 slots
+    def serve_batch():
+        eng = ContinuousBatchingEngine(cfg, run, params, max_batch=4,
+                                       max_len=64)
+        rids = [eng.submit(list(range(2 + i, 10 + i)), max_new_tokens=8)
+                for i in range(6)]
+        return rids, eng.run_until_done()
+    if what == "serve":
+        (rids, done), csecs, counts = counted(serve_batch)
+        expect(counts, f"phase {phase} {arch} continuous batching")
+        if set(done) != set(rids) or any(
+                not done[r].done or len(done[r].generated) != 8
+                for r in rids):
+            raise AssertionError(f"phase {phase} {arch}: a request did not "
+                                 f"complete")
+        log(f"  ContinuousBatchingEngine: 6 requests in 4 slots, 8 new "
+            f"tokens each, all complete in {csecs:.3f} s ({48 / csecs:.1f} "
+            f"new tokens/s incl. the batch-1 prefills)")
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= 80e9:
+        raise AssertionError(f"phase {phase} {arch}: peak {peak} bytes")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+    out["peak"] = peak
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_prefix(calls_card, calls_cpu, what):
+    """Routing of one run on the card against the same run on the CPU,
+    call by call: every difference must fall on an ambiguous token (a
+    router gap under ROUTER_TOL on either side).  Returns, per MoE call,
+    the (B, S) mask of ambiguous tokens and the counts."""
+    import torch
+    if len(calls_card) != len(calls_cpu):
+        raise AssertionError(f"{what}: {len(calls_card)} MoE calls on the "
+                             f"card, {len(calls_cpu)} on the CPU")
+    masks, routed, amb, moved = [], 0, 0, 0
+    for a, b in zip(calls_card, calls_cpu):
+        B, S = b["shape"]
+        G, T, k = b["idx"].shape
+        ambiguous = torch.minimum(a["gap"], b["gap"]) < ROUTER_TOL
+        differs = (a["idx"] != b["idx"]).any(-1) | (
+            a["keep"] != b["keep"]).reshape(G, T, k).any(-1)
+        flips = (a["idx"] != b["idx"]).any(-1)
+        if bool((flips & ~ambiguous).any()):
+            raise AssertionError(f"{what}: a token with router gap >= "
+                                 f"{ROUTER_TOL} routes differently")
+        # a flip moves the later slots of its group: from the first
+        # ambiguous token of a group on, nothing is held
+        bad = ambiguous | differs
+        first = torch.where(bad.any(-1), bad.int().argmax(-1),
+                            torch.full((G,), T))
+        later = torch.arange(T)[None, :] >= first[:, None]
+        masks.append(later.reshape(B, S) if B * S == G * T else later)
+        routed += G * T
+        amb += int(ambiguous.sum())
+        moved += int(flips.sum())
+    return masks, routed, amb, moved
+
+
+def phase15_card_vs_cpu(dev):
+    """15e: each MoE config at a reduced width in fp32 through
+    prefill_step (B 2 × S 512) and generate (B 4, 16 + 16 tokens) on the
+    card and, with the same weights and tokens, on the CPU."""
+    import torch
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import engine
+    from repro_torch.serve.engine import generate, prefill_step
+    run = RunConfig(attn_impl="pallas", use_pallas=True)
+    cpu = torch.device("cpu")
+    for arch, kw in REDUCED.items():
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **kw)
+        params = init_model(cfg, 1, device=dev)
+        host = nest_tree({k: t.to(cpu) for k, t in flat_tree(params).items()})
+        gen = torch.Generator().manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                             dtype=torch.int32)
+        res = {}
+        for side, p, d in (("card", params, dev), ("cpu", host, cpu)):
+            with MoeRecorder() as rec:
+                logits = prefill_step(cfg, run, p, {"tokens": toks.to(d)})
+            res[side] = (logits.cpu(), rec.calls)
+        masks, routed, amb, moved = held_prefix(
+            res["card"][1], res["cpu"][1], f"15e {arch} prefill")
+        held = ~torch.stack(masks).any(0)          # (B, S) positions held
+        # causal: a position is held only while every earlier one is
+        held = torch.cumprod(held.int(), dim=1).bool()
+        v = cfg.vocab_size
+        diff = (res["card"][0] - res["cpu"][0])[..., :v].abs().amax(-1)
+        worst = float(diff[held].max()) if bool(held.any()) else 0.0
+        log(f"  {arch} reduced (d {cfg.d_model}, G "
+            f"{cfg.n_heads // cfg.n_kv_heads}, {cfg.n_experts} experts "
+            f"top-{cfg.top_k}, {cfg.n_layers} layers, fp32) prefill B=2 "
+            f"S=512: {routed} routed tokens over {len(masks)} MoE calls, "
+            f"{amb} ambiguous (router gap < {ROUTER_TOL}), {moved} routed "
+            f"differently; {int(held.sum())} of {held.numel()} positions "
+            f"held, max |card - cpu| over them {worst} (tolerance "
+            f"{LOGIT_TOL}); dropped "
+            f"{[round(c['dropped'], 4) for c in res['card'][1]]}")
+        if worst > LOGIT_TOL or int(held.sum()) == 0:
+            raise AssertionError(f"15e {arch} prefill: card and CPU differ "
+                                 f"by {worst} on held positions")
+
+        # generate: the lm logits of every decode call recorded too
+        prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                               dtype=torch.int32)
+        gres = {}
+        orig = engine.model_decode_step
+        for side, p, d in (("card", params, dev), ("cpu", host, cpu)):
+            lg = []
+
+            def rec_step(*a, **k):
+                out = orig(*a, **k)
+                lg.append(out[0][:, 0, :v].cpu())
+                return out
+            engine.model_decode_step = rec_step
+            try:
+                with MoeRecorder() as rec:
+                    toks_out = generate(cfg, run, p, prompt.to(d), 16)
+            finally:
+                engine.model_decode_step = orig
+            gres[side] = (toks_out.cpu(), rec.calls, lg)
+        n_layers = len(gres["cpu"][1]) // len(gres["cpu"][2])
+        bad_call = len(gres["cpu"][2])
+        for c, (a, b) in enumerate(zip(gres["card"][2], gres["cpu"][2])):
+            calls = slice(c * n_layers, (c + 1) * n_layers)
+            m, _, namb, _ = held_prefix(gres["card"][1][calls],
+                                        gres["cpu"][1][calls],
+                                        f"15e {arch} generate call {c}")
+            # the prompt's calls feed given tokens: only a generated
+            # token's argmax can tie
+            top = torch.topk(b, 2, dim=-1).values
+            tie = c >= 15 and bool(((top[:, 0] - top[:, 1])
+                                    < LOGIT_TOL).any())
+            if namb or tie or bool(torch.stack(m).any()):
+                bad_call = c
+                break
+            d = float((a - b).abs().max())
+            if d > LOGIT_TOL:
+                raise AssertionError(f"15e {arch} generate call {c}: card "
+                                     f"and CPU logits differ by {d}")
+        # generated token j comes from call 15 + j's logits
+        n_held = max(0, min(16, bad_call - 15))
+        same = torch.equal(gres["card"][0][:, :n_held],
+                           gres["cpu"][0][:, :n_held])
+        log(f"  {arch} reduced generate B=4, 16 + 16: {len(gres['cpu'][2])}"
+            f" decode calls, the first ambiguous one "
+            f"{bad_call if bad_call < len(gres['cpu'][2]) else 'none'}; "
+            f"{n_held} of 16 generated tokens held, equal {same}")
+        if not same:
+            raise AssertionError(f"15e {arch} generate: held tokens differ")
+        del params, host
+        torch.cuda.empty_cache()
+
+
+def phase15_dryrun(dev, llama4):
+    """15f: the dry-run CLI as a subprocess, then its one-device
+    prediction for 15a's own prefill beside what 15a measured."""
+    import os
+    import torch
+    from repro_torch.config import InputShape
+    from repro_torch.launch import mesh
+    from repro_torch.launch.dryrun import dryrun_one
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama4-maverick-400b-a17b", "--shape", "prefill_32k"],
+        capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"15f dry-run exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    rows = json.loads(next(ln for ln in proc.stdout.splitlines()
+                           if ln.startswith("[{")))
+    if rows[0]["status"] != "ok":
+        raise AssertionError(f"15f dry-run: {rows}")
+    log(f"  python -m repro_torch.launch.dryrun --arch "
+        f"llama4-maverick-400b-a17b --shape prefill_32k: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; {json.dumps(rows[0])}")
+    cfg = phase15_cfg("llama4_maverick_400b_a17b", 1)
+    one = dryrun_one("llama4-maverick-400b-a17b", "prefill_8k", cfg=cfg,
+                     shape=InputShape("prefill_8k", PREFILL_S, 1, "prefill"),
+                     mesh=mesh.make_debug_mesh(1, 1), verbose=False)
+    router = cfg.n_units * cfg.d_model * cfg.n_experts   # fp32 leaves
+    if one["param_bytes"] != llama4["param_bytes"] or \
+            one["param_bytes"] != llama4["params"] * 2 + router * 2:
+        raise AssertionError(f"15f: dry-run parameter bytes "
+                             f"{one['param_bytes']}, the card's tree "
+                             f"{llama4['param_bytes']}")
+    log(f"  dry-run of 15a's prefill on a 1 x 1 mesh: parameter bytes "
+        f"{one['param_bytes']} = count_params {llama4['params']} x 2 + the "
+        f"fp32 router's {router} x 2, equal to the tree on the card; "
+        f"argument bytes {one['arg_bytes']}, temporaries "
+        f"{one['temp_bytes']}, in all {one['bytes_per_device']} bytes "
+        f"({one['bytes_per_device'] / 2**30:.2f} GiB) against the prefill's "
+        f"measured peak {llama4['prefill_peak']} bytes "
+        f"({llama4['prefill_peak'] / 2**30:.2f} GiB); "
+        f"{one['hlo_flops_per_dev'] / 1e12:.3f} Tflop traced "
+        f"(MODEL_FLOPS {one['model_flops'] / 1e12:.3f}): t_compute "
+        f"{one['t_compute_s'] * 1e3:.2f} ms, t_memory "
+        f"{one['t_memory_s'] * 1e3:.2f} ms at H100 SXM rates, against the "
+        f"measured {llama4['prefill_s'] * 1e3:.2f} ms on "
+        f"{torch.cuda.get_device_name(0)}")
+
+
+def phase_moe_frontends(dev, launches):
+    """Phase 15 (see the module docstring)."""
+    import torch
+    log(f"  times on {torch.cuda.get_device_name(0)}; nvidia-smi: "
+        f"{smi_line()}")
+    results = {}
+    for phase, arch, units, what in PHASE15:
+        t = time.perf_counter()
+        log(f"phase {phase}: {arch}, full width"
+            + (f", {units} unit(s)" if units else " and depth")
+            + ", bf16, attn_impl='pallas', use_pallas=True")
+        results[arch] = phase15_model(phase, arch, units, what, dev,
+                                      launches)
+        log(f"  {phase} {arch} in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log(f"phase 15e: the MoE configs at a reduced width in fp32, card "
+        f"against CPU (router tolerance {ROUTER_TOL}, logits {LOGIT_TOL})")
+    phase15_card_vs_cpu(dev)
+    log(f"  15e in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("phase 15f: the dry-run")
+    phase15_dryrun(dev, results["llama4_maverick_400b_a17b"])
+    log(f"  15f in {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -3097,6 +3620,13 @@ def main() -> int:
         t14 = time.perf_counter()
         phase_training(dev, launches, Path(keep))
         log(f"  phase 14 in {time.perf_counter() - t14:.1f} s")
+    log("phase 15: MoE and the modality frontends at full width "
+        "(llama4_maverick one unit, arctic 2 layers, qwen3_14b, "
+        "starcoder2_7b, hubert_xlarge, internvl2_2b), card against CPU, "
+        "the dry-run")
+    t15 = time.perf_counter()
+    phase_moe_frontends(dev, launches)
+    log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
 
     kernels = []
     ring_src = "src/repro_torch/kernels/csrc/replay_ring.cu"

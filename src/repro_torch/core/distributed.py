@@ -116,7 +116,10 @@ def _value_and_grad(loss_fn: Callable, params, batch, sample_weights):
         loss, metrics = loss_fn(leaves, batch)
     else:
         loss, metrics = loss_fn(leaves, batch, sample_weights=sample_weights)
-    grads = iter(torch.autograd.grad(loss, flat))
+    # a leaf the loss does not read (an audio model's token embedding)
+    # gets a zero gradient, as under jax.grad
+    grads = iter(torch.autograd.grad(loss, flat, allow_unused=True,
+                                     materialize_grads=True))
     return (loss.detach(), tree_map(lambda m: m.detach(), metrics),
             tree_map(lambda _: next(grads), leaves))
 

@@ -60,10 +60,10 @@
 //   when its P V is done, one step after its K was read: hence 3 stages, so
 //   that the load of tile t + 1 overlaps step t.
 // Shared memory.  TMA boxes of 64 columns (128 bytes of bf16) x 128 rows with
-// the 128-byte swizzle, which wgmma reads without bank conflicts.  D = 112
-// takes two boxes whose second runs past the tensor's inner dimension: TMA
-// fills those columns with zeros, which pads D to 128 at no cost in
-// correctness; D = 16, 32 pad to 64 the same way.  Ragged Sq and Sk come in as
+// the 128-byte swizzle, which wgmma reads without bank conflicts.  D = 80
+// and 112 take two boxes whose second runs past the tensor's inner
+// dimension: TMA fills those columns with zeros, which pads D to 128 at no
+// cost in correctness; D = 16, 32 pad to 64 the same way.  Ragged Sq and Sk come in as
 // zero rows too.  At D 128: Q 32 KB + 3 stages x (K 32 KB + V 32 KB) = 224 KB
 // of the 227 KB a block may hold.
 // Tensor maps are built on the host per call from the operands' own strides
@@ -640,15 +640,15 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 // contiguous head dim.  strides: 14 element strides — q (b, kv, g, s),
 // k (b, kv, s), v (b, kv, s), o (b, kv, g, s); every one a multiple of 8
 // elements (16 bytes) and q/k/v 16-byte aligned (the TMA's rules, checked by
-// the wrapper).  D in {16, 32, 64, 112, 128}.  Returns 0 when launched, a
-// cudaError_t, or ERR_NO_ENCODE / ERR_ENCODE + CUresult.
+// the wrapper).  D in {16, 32, 64, 80, 112, 128}.  Returns 0 when launched,
+// a cudaError_t, or ERR_NO_ENCODE / ERR_ENCODE + CUresult.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o,
                                         const long long* strides, int B,
                                         int KV, int G, int Sq, int Sk, int D,
                                         float scale, int causal, int window,
                                         void* stream) {
-  if (D != 16 && D != 32 && D != 64 && D != 112 && D != 128)
+  if (D != 16 && D != 32 && D != 64 && D != 80 && D != 112 && D != 128)
     return (int)cudaErrorInvalidValue;
   const long long *qs = strides, *ks = strides + 4, *vs = strides + 7,
                   *os = strides + 10;

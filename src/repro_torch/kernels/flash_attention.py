@@ -64,7 +64,10 @@ NEG_INF = -1e30
 BLK_Q = 128          # both kernels: query positions (of one head) per block
 SM90_BLK_K = 128     # csrc/flash_attention_sm90.cu: keys per K/V tile
 TF32X3_BLK_K = 32    # csrc/flash_attention.cu: keys per K/V tile
-HEAD_DIMS = (16, 32, 64, 112, 128)
+# the head dims each kernel is built for: the sm90 kernel pads any D over 64
+# to 128 with the TMA's zeros (D 80: hubert_xlarge; D 112: zamba2_7b)
+HEAD_DIMS = {"sm90": (16, 32, 64, 80, 112, 128),
+             "tf32x3": (16, 32, 64, 112, 128)}
 _PATHS = {torch.bfloat16: "sm90", torch.float32: "tf32x3"}
 _BLK_K = {"sm90": SM90_BLK_K, "tf32x3": TF32X3_BLK_K}
 
@@ -268,8 +271,10 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (blk_q or kq, blk_k or kk) != (kq, kk):
         raise ValueError(f"the CUDA kernel tiles {(kq, kk)}, not "
                          f"{(blk_q, blk_k)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}; the kernel takes {HEAD_DIMS}")
+    dims = HEAD_DIMS[kernel_path(q.dtype)]
+    if D not in dims:
+        raise ValueError(f"head dim {D}; the {kernel_path(q.dtype)} kernel "
+                         f"takes {dims}")
     _launch(q, k, v, out, causal, window,
             torch.cuda.current_stream(dev).cuda_stream)
     launches["flash_attention"] += 1

@@ -24,6 +24,19 @@ device, so gloo carries the collectives on host tensors.
 The functions ``shard_map`` runs and the arguments it passes are pickled
 into each rank: module-level functions, methods of module-level classes,
 tensors (CPU tensors travel best) and numpy arrays.
+
+**Production meshes** (the dry-run's): :func:`make_production_mesh` gives an
+:class:`AbstractMesh` — axis names and sizes, nothing spawned and no
+device touched — of 16 × 16 (``data``, ``model``) or 2 × 16 × 16 (``pod``,
+``data``, ``model``) H100s.  The roofline charges them at H100 SXM rates
+(NVIDIA H100 data sheet, SXM5): ``PEAK_FLOPS`` 989 TFLOP/s dense bf16,
+``HBM_BW`` 3.35 TB/s HBM3, and ``ICI_BW`` 50 GB/s per GPU for collectives.
+A 16 × 16 mesh of 8-GPU nodes spans 32 nodes, and the ``model`` axis (16
+GPUs) spans two of them: a ring over it crosses the inter-node network, so
+every axis is charged at the slower link, one 400 Gb/s NIC per GPU
+(50 GB/s), not NVLink 4's 450 GB/s per direction per GPU inside a node
+(``NVLINK_BW``, kept for reference).  A ring collective runs at the rate
+of its slowest hop, and each of the mesh's axes has a hop between nodes.
 """
 
 from __future__ import annotations
@@ -39,6 +52,16 @@ from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+PEAK_FLOPS = 989e12          # dense bf16 FLOP/s per H100 SXM
+HBM_BW = 3.35e12             # HBM3 B/s per H100 SXM
+ICI_BW = 50e9                # B/s per GPU between nodes (400 Gb/s NIC)
+NVLINK_BW = 450e9            # B/s per direction per GPU inside a node
+
+SINGLE_POD_SHAPE = (16, 16)
+SINGLE_POD_AXES = ("data", "model")
+MULTI_POD_SHAPE = (2, 16, 16)
+MULTI_POD_AXES = ("pod", "data", "model")
 
 # the emulated-cluster mesh of the SPMD replay: S parameter-server shards ×
 # L learner-group ranks
@@ -245,3 +268,63 @@ def shard_map(fn: Callable, ranks: int, *args,
                     p.kill()
                 p.join()
         return torch.load(out, weights_only=False)
+
+
+# ---------------------------------------------------------------------------
+# production meshes (abstract: names and sizes only)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of axis names and sizes, as the dry-run needs it: no rank
+    is spawned and no device is touched."""
+
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"{self.axis_sizes} sizes for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+    @property
+    def name(self) -> str:
+        return "x".join(map(str, self.axis_sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    if multi_pod:
+        return AbstractMesh(MULTI_POD_SHAPE, MULTI_POD_AXES)
+    return AbstractMesh(SINGLE_POD_SHAPE, SINGLE_POD_AXES)
+
+
+def data_axes(mesh: AbstractMesh) -> Tuple[str, ...]:
+    """The learner (batch) axes: ('pod', 'data') on multi-pod meshes."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def n_chips(mesh: AbstractMesh) -> int:
+    return mesh.size
+
+
+def n_learners(mesh: AbstractMesh) -> int:
+    """λ for the distributed runtime = product of the learner axes."""
+    lam = 1
+    for a in data_axes(mesh):
+        lam *= mesh.shape[a]
+    return lam
+
+
+def make_debug_mesh(data: int = 2, model: int = 2) -> AbstractMesh:
+    """A small (data, model) mesh for CPU tests."""
+    return AbstractMesh((data, model), ("data", "model"))

@@ -6,8 +6,10 @@ stacked ``n_units`` times.  All blocks are pre-norm residual.  ``shared``
 carries the weight-shared attention block of zamba2 (``BLOCK_SHARED_ATTN``):
 its attention and MLP weights (:func:`init_shared_block`) have no unit axis
 and serve every unit, while each unit keeps its own norms and its own KV
-cache.  The port has the attn, mamba, rwkv and shared_attn blocks; moe and
-moe_dense raise ``NotImplementedError`` naming their ROADMAP.md item.
+cache.  ``moe`` is attention and a top-k MoE in place of the MLP;
+``moe_dense`` (arctic) is attention and the MoE beside a dense MLP, both
+reading the same normed input (``models/moe.py``).  The MoE blocks' aux
+dict carries their load-balance and z losses and the dropped fraction.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from repro_torch import config as C
 from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Lead, init_rms_norm, init_swiglu,
@@ -26,18 +29,12 @@ from repro_torch.models.layers import (Lead, init_rms_norm, init_swiglu,
 
 ZERO_AUX = {"lb_loss": 0.0, "z_loss": 0.0, "dropped_fraction": 0.0}
 
-_NOT_PORTED = {
-    C.BLOCK_MOE: "moe (ROADMAP.md queue 1 item 10)",
-    C.BLOCK_MOE_DENSE_RESIDUAL: "moe (ROADMAP.md queue 1 item 10)",
-}
+_ATTENTION = (C.BLOCK_ATTN, C.BLOCK_MOE, C.BLOCK_MOE_DENSE_RESIDUAL,
+              C.BLOCK_SHARED_ATTN)
 
 
 def _check(block_type: str) -> None:
-    if block_type in _NOT_PORTED:
-        raise NotImplementedError(f"block type {block_type!r} is not ported "
-                                  f"yet: {_NOT_PORTED[block_type]}")
-    if block_type not in (C.BLOCK_ATTN, C.BLOCK_MAMBA, C.BLOCK_RWKV,
-                          C.BLOCK_SHARED_ATTN):
+    if block_type not in _ATTENTION + (C.BLOCK_MAMBA, C.BLOCK_RWKV):
         raise ValueError(block_type)
 
 
@@ -54,6 +51,17 @@ def init_block(block_type: str, gen, cfg: ModelConfig, dtype, device,
                 "attn": attn.init_attention(gen, cfg, dtype, device, lead),
                 "norm2": init_rms_norm(M, dtype, device, lead),
                 "mlp": init_swiglu(gen, M, cfg.d_ff, dtype, device, lead)}
+    if block_type == C.BLOCK_MOE:
+        return {"norm1": norm,
+                "attn": attn.init_attention(gen, cfg, dtype, device, lead),
+                "norm2": init_rms_norm(M, dtype, device, lead),
+                "moe": moe_mod.init_moe(gen, cfg, dtype, device, lead)}
+    if block_type == C.BLOCK_MOE_DENSE_RESIDUAL:
+        return {"norm1": norm,
+                "attn": attn.init_attention(gen, cfg, dtype, device, lead),
+                "norm2": init_rms_norm(M, dtype, device, lead),
+                "mlp": init_swiglu(gen, M, cfg.d_ff, dtype, device, lead),
+                "moe": moe_mod.init_moe(gen, cfg, dtype, device, lead)}
     if block_type == C.BLOCK_MAMBA:
         return {"norm1": norm,
                 "mamba": ssm_mod.init_mamba(gen, cfg, dtype, device, lead)}
@@ -102,8 +110,21 @@ def block_forward(block_type: str, cfg: ModelConfig, run: RunConfig,
         ), ZERO_AUX
     w = _attn_weights(block_type, p, shared)
     x = x + attn.attention_forward(cfg, run, w["attn"], h1, positions)
-    x = x + swiglu(rms_norm(x, p["norm2"]["scale"], cfg.norm_eps), w["mlp"])
-    return x, ZERO_AUX
+    return _feed_forward(block_type, cfg, p, w, x)
+
+
+def _feed_forward(block_type: str, cfg: ModelConfig, p: dict, w: dict,
+                  x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """The second half of an attention block: the MLP, the MoE, or (arctic)
+    both on the same normed input."""
+    xn = rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
+    if block_type == C.BLOCK_MOE:
+        mo, aux = moe_mod.moe_forward(cfg, p["moe"], xn)
+        return x + mo, aux
+    if block_type == C.BLOCK_MOE_DENSE_RESIDUAL:
+        mo, aux = moe_mod.moe_forward(cfg, p["moe"], xn)
+        return x + mo + swiglu(xn, p["mlp"]), aux
+    return x + swiglu(xn, w["mlp"]), ZERO_AUX
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +161,5 @@ def block_decode(block_type: str, cfg: ModelConfig, run: RunConfig,
     w = _attn_weights(block_type, p, shared)
     h, cache = attn.attention_decode(cfg, run, w["attn"], h1, position,
                                      cache)
-    x = x + h
-    x = x + swiglu(rms_norm(x, p["norm2"]["scale"], cfg.norm_eps), w["mlp"])
-    return x, cache, ZERO_AUX
+    x, aux = _feed_forward(block_type, cfg, p, w, x + h)
+    return x, cache, aux

@@ -36,9 +36,12 @@ def dtype_of(name: str) -> torch.dtype:
 def normal(gen: Optional[torch.Generator], shape, dtype, device,
            scale: float) -> torch.Tensor:
     """N(0, 1) in ``dtype`` times ``scale`` (rounded in ``dtype``, as the
-    reference's ``jax.random.normal(key, shape, dtype) * s``)."""
-    return torch.randn(shape, generator=gen, dtype=dtype, device=device) \
-        * scale
+    reference's ``jax.random.normal(key, shape, dtype) * s``).  Scaled in
+    place: an expert leaf of a full-width MoE model is ~9-18 GB, and a
+    second leaf-sized tensor for the product would double the draw's
+    peak."""
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=device).mul_(scale)
 
 
 # ---------------------------------------------------------------------------

@@ -25,14 +25,19 @@ gradient once (an index per unit would add n_units full-size zero tensors).
 ``attn_impl="pallas"`` and ``use_pallas`` have no backward, in the
 reference as here: :func:`model_loss` refuses them.  ``residual_spec``
 steers sharding in the reference; the single-card port does not read it.
-Not ported yet: the audio and vision frontends and the moe blocks (queue 1
-item 10; see ``models/blocks.py``).
+
+Modality frontends are stubs, as in the reference: an audio model
+(hubert) takes precomputed frame embeddings ``frames`` (B, S, M), a VLM
+(internvl2) precomputed patch embeddings ``patches`` (B, P, M) prepended to
+its token embeddings, each through the learned ``frontend_proj`` (M × M).
+An encoder-only model has no decode step (``config.validate_pairing``).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -42,7 +47,8 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (dtype_of, embed, init_embedding,
                                        init_lm_head, init_rms_norm, lm_head,
-                                       rms_norm, softmax_cross_entropy)
+                                       normal, rms_norm,
+                                       softmax_cross_entropy)
 
 
 def _unit(tree, u: int):
@@ -61,12 +67,6 @@ def _unit_trees(tree, n: int) -> list:
     return tree.unbind(0)
 
 
-def _check_model(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported "
-                                  f"yet (ROADMAP.md queue 1 item 10)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -75,7 +75,6 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
     """The parameter tree drawn from ``gen`` on ``device`` as given (no
     card check; ``device="meta"`` with ``gen=None`` gives shapes and dtypes
     only)."""
-    _check_model(cfg)
     dtype = dtype_of(cfg.dtype)
     lead = (cfg.n_units,)
     params = {
@@ -92,6 +91,10 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
     shared = B.init_shared_block(gen, cfg, dtype, device)
     if shared is not None:
         params["shared"] = shared
+    if cfg.frontend != "none":
+        params["frontend_proj"] = normal(
+            gen, (cfg.d_model, cfg.d_model), dtype, device,
+            float(1.0 / np.sqrt(cfg.d_model)))
     return params
 
 
@@ -110,8 +113,15 @@ def init_model(cfg: ModelConfig, gen=0, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 def embed_inputs(cfg: ModelConfig, params: dict,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Returns (B, S, M) input activations (token embeddings)."""
-    _check_model(cfg)
+    """Returns (B, S, M) input activations: the projected frames (audio),
+    the projected patches followed by the token embeddings (vision), or the
+    token embeddings."""
+    if cfg.frontend == "audio":
+        return torch.matmul(batch["frames"], params["frontend_proj"])
+    if cfg.frontend == "vision":
+        patches = torch.matmul(batch["patches"], params["frontend_proj"])
+        toks = embed(batch["tokens"], params["embed"])
+        return torch.cat([patches, toks], dim=1)
     return embed(batch["tokens"], params["embed"])
 
 
@@ -187,7 +197,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda") -> dict:
     """Stacked (n_units leading axis) per-block caches: one real
     allocation per leaf, so no two units share storage."""
-    _check_model(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     return {f"block_{i}": B.init_block_cache(bt, cfg, batch, max_len, dtype,

@@ -71,6 +71,7 @@ def _model_layout(B, S, H, KV, D, dtype=torch.bfloat16):
 @pytest.mark.parametrize("B,S,H,KV,D", [
     (1, 64, 12, 2, 128),     # qwen2_1_5b
     (2, 40, 32, 32, 112),    # zamba2_7b
+    (1, 48, 16, 16, 80),     # hubert_xlarge
     (1, 33, 4, 4, 16), (2, 7, 8, 2, 32), (1, 201, 6, 1, 64)])
 def test_tma_precondition_accepts_the_model_layouts(B, S, H, KV, D):
     for dtype in (torch.bfloat16, torch.float32):
@@ -253,7 +254,7 @@ def cuda():
                                    (777, 201)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 48)])
 @pytest.mark.parametrize("G", [1, 4, 6])
-@pytest.mark.parametrize("D", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 112, 128])
 def test_sm90_matches_plain_on_card(D, G, causal, window, Sq, Sk, cuda):
     B, KV = 2, 2
     q = _randn(60, (B, Sq, KV * G, D)).to(cuda)

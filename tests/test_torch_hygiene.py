@@ -87,12 +87,25 @@ def test_port_file_list_is_complete():
                      "configs/llama3_405b.py", "configs/arctic_480b.py",
                      "core/distributed.py", "data/pipeline.py",
                      "checkpoint/io.py", "train/loop.py", "launch/train.py",
-                     "experiments/cells/cnn_fig5.py"):
+                     "experiments/cells/cnn_fig5.py", "models/moe.py",
+                     "launch/specs.py", "launch/dryrun.py",
+                     "launch/report.py", "launch/dryrun_campaign.py",
+                     "launch/campaign.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",
                    "ssm_scan.cu", "wkv6.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file()
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port mirrors the reference's module tree file for file: each
+    ``src/repro/**/*.py`` has a namesake under ``src/repro_torch/``."""
+    ref = ROOT / "src" / "repro"
+    missing = [p.relative_to(ref).as_posix() for p in sorted(ref.rglob("*.py"))
+               if not (PORT / p.relative_to(ref)).is_file()]
+    assert not missing, missing
+    assert len(list(ref.rglob("*.py"))) >= 92
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
@@ -118,6 +131,8 @@ def test_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "import repro_torch.data.pipeline, repro_torch.checkpoint.io\n"
             "import repro_torch.launch.train\n"
             "import repro_torch.experiments.cells.cnn_fig5\n"
+            "import repro_torch.models.moe, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.report, repro_torch.launch.campaign\n"
             "from repro_torch.experiments.registry import cell_names\n"
             "cell_names()\n"
             "from repro_torch.configs import get_config\n"

@@ -41,7 +41,6 @@ from repro_torch.configs import get_smoke
 from repro_torch.experiments.carry import model_params_from_jax
 from repro_torch.models import (count_params, init_caches, init_model,
                                 model_decode_step, model_forward)
-from repro_torch.models import blocks
 from repro_torch.serve.engine import (generate, init_serve_state, prefill,
                                       prefill_step, serve_step)
 from repro_torch.serve.scheduler import ContinuousBatchingEngine
@@ -250,10 +249,3 @@ def test_carry_maps_mamba_rwkv_and_shared_leaves(arch):
         assert rw["bonus_u"].dtype == rw["decay_w0"].dtype == torch.float32
     assert count_params(p) == sum(int(np.prod(a.shape))
                                   for a in jax.tree.leaves(tree))
-
-
-@pytest.mark.parametrize("block", ["moe", "moe_dense"])
-def test_other_blocks_name_their_roadmap_item(block):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        blocks.init_block(block, None, get_smoke("qwen2_1_5b"),
-                          torch.float32, "meta")
