@@ -15,9 +15,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    (``flash_attention_sm90``, ``flash_attention``) the counts of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in their SASS
    (``cuobjdump -sass``), each required to be nonzero, and ptxas's wgmma
-   warnings; for the redesigned ``ring_apply_whatif`` kernel, the
-   four ``ssm_scan`` kernels and the three ``wkv6`` kernels, their
-   registers and spill bytes (ptxas; a ``wkv6`` kernel that spills fails).
+   warnings; for the redesigned ``ring_apply_whatif`` kernel, the update
+   kernels' ``simple_kernel`` instances (in ``replay_ring`` and
+   ``ps_update``), the four ``ssm_scan`` kernels and
+   the three ``wkv6`` kernels, their registers and spill bytes (ptxas; a
+   ``wkv6`` kernel that spills fails).
 3. Kernel vs plain version on the card: ``ring_apply`` over optimizer ×
    mode × ring dtype and ``ring_apply_whatif`` over optimizer × ring dtype,
    at D = 2²² + 37 (a ragged edge), c = 32, K ∈ {3, 1} (K = 1: hardsync,
@@ -27,7 +29,15 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    pulled and at K = 1, at D = 2²² (its 8-wide
    path) and the ragged D; ``ps_apply`` over optimizer × mode
    at the same D and c (its inputs must come back unchanged: it writes
-   out of place).  Tolerance: 0 — bitwise.  Then ``flash_attention`` at
+   out of place).  Then both update kernels at the wide lanes' D =
+   10 000 004 with their 4-wide loads (checked: ``build.vec4``), c = 32,
+   K 3 and 1, every optimizer, mode and ring dtype; the sequential mode
+   at c = 128 (momentum, adagrad); a ring view 16 bytes past a 128-byte
+   boundary; and ``ring_apply``'s lane axis (3 lanes of D 3 333 336,
+   4-wide, and of the ragged 2²² + 37, 1-wide; K 3 and 1; combine,
+   sequential and a masked per-lane coef; 4 lanes at the paper's D 2 762,
+   c 30).  Tolerance: 0 — bitwise.  Then
+   ``flash_attention`` at
    qwen2_1_5b's GQA (H = 12 over KV = 2, D = 128) and a ragged S = 1 000:
    causal, causal with a window of 48, and non-causal, fp32 (the 3×TF32
    kernel) and bf16 (the sm90 kernel), once through the (B, KV, G, S, D)
@@ -90,7 +100,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    versions on the card.
 7. Per-launch times of each kernel at the phase 5 / 6 shapes beside its
    bound, its plain version's time and one PyTorch call computing the same
-   event (``torch.addmv``, where one exists); ``flash_attention`` at one
+   event (``torch.addmv``, where one exists): ``ring_apply`` fp32 and
+   bf16 (with its residue) and ``ps_apply`` sgd and momentum at D
+   10 000 004, c 128, beside the card's practical memory rate (a 5.12 GB
+   copy); ``ring_apply`` at the paper shape (D 2 762, c 30): one ring, 4
+   lanes in one launch and in 4; ``flash_attention`` at one
    layer of the prefill_32k shape (B 1, KV 2, G 6, S 32 768, D 128, causal)
    and at one layer of zamba2_7b's prefill (B 1, H = KV = 32, S 8 192,
    D 112): the sm90 kernel in bf16 and the 3×TF32 kernel in fp32, each
@@ -148,14 +162,18 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    within two of the 2 048 test samples of the same cell run through the
    plain versions on the CPU, and within 37 of the envelope's (the
    envelopes come from an older reference: ``CARD_VS_CPU_TOL``,
-   ``ENVELOPE_TOL``); ``ring_apply``
-   launches per cell equal to the events its records replay (plus the 4 ×
-   40 of ``topology``'s engine-overhead timing); seconds and events/s
-   per cell.
+   ``ENVELOPE_TOL``); ``ring_apply`` lane events per cell equal to the
+   events its records replay (plus the 4 × 40 of ``topology``'s
+   engine-overhead timing), and its launches to those less the lanes that
+   share a launch: one per event of each batched group (``LaneGroups``
+   records the groups ``run_sweep`` forms and holds them to the batched
+   records); seconds and events/s per cell.
 12. The rest of the paper campaign through ``campaign.run_cell`` on the
    card at the cells' default params, into a temporary results directory,
-   each cell also run on the CPU at the same params, in two worker
-   processes while the card runs the cells (every CPU twin at the
+   each cell also run on the CPU at the same params, in three worker
+   processes of one torch thread each, started after phase 7 so that
+   they run while the card runs phases 8-12 and no kernel timing of
+   phase 7 shares the host with them (every CPU twin at the
    default params — fig5 4.4, fig6_7 25.2, table2 11.9, baselines 8.2,
    table3_4 42.8 s on the host of one NVIDIA H100 80GB HBM3, 700.00 W, 90.1
    s on a slower one — so none runs at ``quick_params``):
@@ -172,8 +190,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    give it on the CPU) and within ``PAPER_ENVELOPE_TOL`` of the envelope's
    (per cell, today's reference's drift from its envelope plus 2 samples:
    fig5 290, fig6_7 88, table2 50, baselines 38, table3_4 29 of 2 048),
-   and ``ring_apply`` launches equal to the events the records replay
-   (123 648); the legacy cells ``baselines`` and ``table3_4`` with every
+   and ``ring_apply`` lane events equal to the events the records replay
+   (123 648), its launches one per event of each batched group; the
+   legacy cells ``baselines`` and ``table3_4`` with every
    number of ``derived`` that is not a test error (simulated time,
    staleness, stalls, ``time_s``, ``minutes_per_epoch_model``) equal to
    the envelope's and the CPU run's, their errors held as above, and
@@ -285,7 +304,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 Launch counts are zeroed just before each main-path phase (4, 4b, 5, 5b,
 5c, 6, each run of phases 8–10, each cell of phases 11–13 and each SPMD
 case of phase 13, in every rank, each case of phase 14, each prefill of
-phase 15) and read just after it; they must equal the update counts
+phase 15) and read just after it; they must equal the update counts (a
+batched group's one launch per event, ``ring_apply``'s lane events one
+per event and lane)
 (phases 8–10, 15: one kernel launch per attention, mamba or rwkv layer of
 a prefill forward, none in decode); flash launches are also counted per
 kernel
@@ -295,13 +316,14 @@ holds each kernel against a plain chain, phase 13's SPMD launches
 summed over ranks (the ``ring`` cell's children count their own) and
 phase 14's ``ps_apply`` (14b and 14e).
 
-Time budget: the whole script took 1 115.2 s on one NVIDIA H100 80GB
-HBM3, 700.00 W, on a slow host (phase 12 423.9 s with its CPU twins one
-after another; phase 13 166.7 s; phase 14 141.7 s; phase 15 100.4 s),
-inside a 1 200 s limit but past 1 050 s: so phase 12's CPU twins now run
-in worker processes beside the card's cells (161 s of twins in that run)
-and 15c serves without the batching engine.  Its time follows the host:
-744.2–846.8 s before phase 15 was added (phase 12 265.6–364.4 s).
+Time budget: the whole script took 863.8–998.3 s on one NVIDIA H100 80GB
+HBM3, 700.00 W, and past its 1 180 s on a slower host (every phase ~1.4×
+slower; phase 12 445.6 s, most of it waiting on the CPU twins, then
+running in two workers from phase 12 on and holding each card cell
+against its twin before running the next).  So the twins now start
+after phase 7 in three single-threaded workers, and phase 12 runs every
+card cell before it waits on a twin.  Its time follows the host:
+744.2–846.8 s before phase 15 was added.
 """
 
 import dataclasses
@@ -360,6 +382,28 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def steady_ms(fn, reps: int, windows: int = 3, most: int = 20) -> float:
+    """ms per call once the card has settled: after 3 warm-up calls,
+    windows of ``reps`` calls (:func:`cuda_ms`) until the last ``windows``
+    agree within 1 % (at most ``most`` windows), their median.  After a
+    large free (phase 6's what-if lane, 46 GiB) the card streams ~15 %
+    slower for a while, a few windows long (``tools/update_probe.py
+    --whatif``); a fixed window would charge that to the kernel.  Logs the
+    first window when it took more than ``windows`` to settle."""
+    for _ in range(3):
+        fn()
+    times = []
+    while len(times) < most:
+        times.append(cuda_ms(fn, reps, warmup=0))
+        last = times[-windows:]
+        if len(last) == windows and max(last) <= 1.01 * min(last):
+            break
+    if len(times) > windows:
+        log(f"    (settled after {len(times)} windows of {reps}: the first "
+            f"{times[0]:.4f} ms a call)")
+    return sorted(times[-windows:])[windows // 2]
 
 
 def max_abs_diff(xs, ys) -> float:
@@ -651,6 +695,7 @@ def phase_kernels_vs_plain(dev) -> dict:
                     f"K={K}  D={D} c={c}  max|kernel-plain| = {err}")
     worst["ring_apply_whatif"] = max(worst["ring_apply_whatif"],
                                      phase_whatif_rows(dev))
+    phase_update_paths(dev)
     worst["ps_apply"] = 0.0
     for opt in ("sgd", "momentum", "adagrad"):
         for mode in ("combine", "sequential"):
@@ -662,6 +707,149 @@ def phase_kernels_vs_plain(dev) -> dict:
                 f"       D={D} c={c}  max|kernel-plain| = {err}; "
                 f"inputs unchanged")
     return worst
+
+
+# phase 3's widths for the update kernels: the ragged CHECK_D takes the
+# 1-wide loads, WIDE_D (the wide lanes') and LANES_D x 3 lanes the 4-wide
+# ones
+LANES_D = 3_333_336
+
+
+def lane_inputs(B, D, c, K, opt, dtype, masked, seed, dev):
+    """One lane-axis event's operands on the card (``replay_batch``'s
+    layout), from a torch.Generator seed: ring (B, K, D), s / res (B, D),
+    g (B, c, D), coef (c,) or — masked, as elastic lanes — (B, c) with
+    about 30 % of the slots cancelled, lrs (B, c), idx [prev, slot]."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ring = torch.empty(B, K, D, device=dev, dtype=torch.bfloat16
+                       if dtype == "bf16" else torch.float32)
+    for b in range(B):
+        for r in range(K):
+            ring[b, r] = torch.randn(D, generator=gen, device=dev)
+    coef = torch.full((c,), 1.0 / c, device=dev)
+    if masked:
+        keep = torch.rand(B, c, generator=gen, device=dev) >= 0.3
+        coef = torch.where(keep, coef, torch.zeros_like(coef))
+    return dict(
+        ring=ring,
+        s=(None if opt == "sgd" else
+           torch.randn(B, D, generator=gen, device=dev).abs()),
+        res=(torch.randn(B, D, generator=gen, device=dev) * 1e-3
+             if dtype == "bf16" else None),
+        g=torch.randn(B, c, D, generator=gen, device=dev),
+        coef=coef,
+        lrs=torch.rand(B, c, generator=gen, device=dev) * 0.09 + 0.01,
+        idx=torch.tensor([0, 1 % K], dtype=torch.int32, device=dev))
+
+
+def lanes_compare(ops, spec, mode, what):
+    """One lane-axis launch on a copy of the inputs and the plain version
+    on the inputs; raises unless bitwise equal."""
+    import torch
+    from repro_torch.kernels import replay_ring
+    from repro_torch.optim import backends
+    k = clone_state(ops)
+    kern = replay_ring.ring_apply(
+        k["ring"], k["s"], k["res"], k["g"], k["coef"], k["lrs"], k["idx"],
+        spec=spec, mode=mode)
+    plain = backends.apply_event_ring_lanes(
+        spec, ops["ring"], ops["s"], ops["res"], ops["g"], ops["coef"],
+        ops["lrs"], ops["idx"][0], ops["idx"][1], mode)
+    torch.cuda.synchronize()
+    return assert_bitwise(kern, plain, what)
+
+
+def offset_ring(ops, nbytes):
+    """``ops`` with its ring moved into a buffer whose base is ``nbytes``
+    past a 512-byte boundary (a view as a caller's slice would give)."""
+    import torch
+    ring = ops["ring"]
+    skip = nbytes // ring.element_size()
+    buf = torch.empty(ring.numel() + skip, dtype=ring.dtype,
+                      device=ring.device)
+    view = buf[skip:].view(ring.shape)
+    view.copy_(ring)
+    if view.data_ptr() % 128 != nbytes % 128:
+        raise AssertionError(f"ring view at {view.data_ptr() % 128} mod 128")
+    return {**ops, "ring": view}
+
+
+def phase_update_paths(dev) -> None:
+    """``ring_apply`` and ``ps_apply`` at the wide lanes' D with its 4-wide
+    loads, and the lane axis, bitwise against the plain versions (see the
+    module docstring, phase 3).  Each case's loads are checked
+    (``build.vec4``)."""
+    from repro_torch.kernels import build
+    from repro_torch.optim import UpdateSpec
+
+    def wide(ops, *keys):
+        if not build.vec4(WIDE_D, *(ops[k] for k in keys)):
+            raise AssertionError("phase 3: the wide case is not 4-wide")
+        return ops
+    n = 0
+    for K in (3, 1):
+        for opt in ("sgd", "momentum", "adagrad"):
+            for dtype in ("fp32", "bf16"):
+                for mode in ("combine", "sequential"):
+                    ops = wide(event_inputs(WIDE_D, 32, K, opt, dtype, False,
+                                            31, dev), "ring", "g")
+                    compare(ops, UpdateSpec(opt), mode, False,
+                            f"ring_apply {opt}/{mode}/{dtype}/K={K}"
+                            f"/D={WIDE_D}")
+                    n += 1
+    for opt in ("sgd", "momentum", "adagrad"):
+        for mode in ("combine", "sequential"):
+            ops = wide(ps_inputs(WIDE_D, 32, opt, 32, dev), "w", "g")
+            ps_compare(ops, UpdateSpec(opt), mode,
+                       f"ps_apply {opt}/{mode}/D={WIDE_D}")
+            n += 1
+    log(f"  ring_apply, ps_apply at D={WIDE_D} (4-wide loads), c=32, K 3 "
+        f"and 1, every optimizer, mode and ring dtype: {n} launches, "
+        f"max|kernel-plain| = 0.0")
+    for opt in ("momentum", "adagrad"):          # sequential at c 128
+        for dtype in ("fp32", "bf16"):
+            ops = event_inputs(WIDE_D, 128, 2, opt, dtype, False, 33, dev)
+            compare(ops, UpdateSpec(opt), "sequential", False,
+                    f"ring_apply sequential c=128 {opt}/{dtype}")
+        del ops
+        ops = ps_inputs(WIDE_D, 128, opt, 34, dev)
+        ps_compare(ops, UpdateSpec(opt), "sequential",
+                   f"ps_apply sequential c=128 {opt}")
+        del ops
+    for dtype in ("fp32", "bf16"):               # 16-B, not 128-B, aligned
+        ops = wide(offset_ring(event_inputs(WIDE_D, 32, 3, "momentum",
+                                            dtype, False, 35, dev), 16),
+                   "ring", "g")
+        compare(ops, UpdateSpec("momentum"), "combine", False,
+                f"ring_apply ring view 16 mod 128 {dtype}")
+    log(f"  sequential at c=128 (momentum, adagrad; fp32, bf16 rings and "
+        f"ps_apply) and a ring view 16 bytes past 128 (fp32, bf16), "
+        f"D={WIDE_D}: max|kernel-plain| = 0.0")
+    n = 0
+    for D in (LANES_D, CHECK_D):
+        for K in (3, 1):
+            for opt in ("sgd", "momentum", "adagrad"):
+                for dtype in ("fp32", "bf16"):
+                    for mode, masked in (("combine", False),
+                                         ("sequential", False),
+                                         ("combine", True)):
+                        ops = lane_inputs(3, D, 32, K, opt, dtype, masked,
+                                          36, dev)
+                        lanes_compare(ops, UpdateSpec(opt), mode,
+                                      f"ring_apply lanes {opt}/{mode}/"
+                                      f"{dtype}/masked {masked}/K={K}/D={D}")
+                        n += 1
+    for masked in (False, True):                 # the paper's ragged width
+        ops = lane_inputs(4, 2_762, 30, 2, "momentum", "fp32", masked, 37,
+                          dev)
+        lanes_compare(ops, UpdateSpec("momentum"), "combine",
+                      f"ring_apply lanes paper shape masked {masked}")
+        n += 1
+    log(f"  ring_apply's lane axis: 3 lanes of D={LANES_D} (4-wide) and of "
+        f"D={CHECK_D} (1-wide), K 3 and 1, every optimizer and ring dtype, "
+        f"combine, sequential and masked per-lane coef; 4 lanes at the "
+        f"paper's D=2762, c=30: {n} launches, max|kernel-plain| = 0.0")
 
 
 def phase_whatif_rows(dev) -> float:
@@ -712,7 +900,55 @@ def counted(fn):
     counts = {k: v for m in mods for k, v in m.launches.items()}
     counts.update({f"flash_{path}": n for path, n in
                    flash_attention.launches_by_path.items()})
+    counts["ring_apply_lane_events"] = replay_ring.lane_events["ring_apply"]
     return res, secs, counts
+
+
+class LaneGroups:
+    """While active, records each ``replay_batch`` call the experiment
+    driver makes — (lanes, events, the ring body its runs resolve to) — so
+    a cell's ``ring_apply`` launches can be reckoned: one per event of a
+    batched group on the kernel body (the lane axis), one per event and
+    record otherwise."""
+
+    def __enter__(self):
+        from repro_torch.experiments import driver
+        from repro_torch.optim import backends, spec_from_run
+        self.calls, self._orig = [], driver.replay_batch
+
+        def recorded(traces, runs, **kw):
+            self.calls.append((len(traces), traces[0].steps,
+                               backends.resolve_ring_impl(
+                                   runs[0].ring_impl,
+                                   spec_from_run(runs[0]))))
+            return self._orig(traces, runs, **kw)
+        driver.replay_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.experiments import driver
+        driver.replay_batch = self._orig
+
+    def launches(self, lane_events: int) -> int:
+        """The launches that apply ``lane_events``: a kernel group's B lanes
+        share each of its events' one launch."""
+        return lane_events - sum((b - 1) * steps for b, steps, impl
+                                 in self.calls if impl == "kernel")
+
+    def check(self, env, what) -> str:
+        """Raise unless the groups are the envelope's batched records (as
+        many lanes, as many events); returns a note for the log."""
+        upd = [r["runtime"]["updates"] for r in env["records"]
+               if r["runtime"]["replay_path"] == "batched"]
+        lanes = sum(b for b, _, _ in self.calls)
+        events = sum(b * steps for b, steps, _ in self.calls)
+        if (lanes, events) != (len(upd), sum(upd)):
+            raise AssertionError(f"{what}: batch groups {self.calls} hold "
+                                 f"{lanes} lanes and {events} lane events, "
+                                 f"the envelope {len(upd)} batched records "
+                                 f"of {sum(upd)} updates")
+        return (f"{len(self.calls)} batched groups of "
+                f"{sorted({b for b, _, _ in self.calls})} lanes")
 
 
 def drive(spec, dev):
@@ -722,9 +958,13 @@ def drive(spec, dev):
 
 
 def expect(counts, what, **want):
+    """Raise unless the launches are ``want`` (every other kernel 0).
+    ``ring_apply_lane_events`` defaults to the ``ring_apply`` launches (one
+    lane each)."""
     full = {"ring_apply": 0, "ring_apply_whatif": 0, "ps_apply": 0,
             "flash_attention": 0, "flash_sm90": 0, "flash_tf32x3": 0,
-            "ssm_scan": 0, "wkv6": 0, **want}
+            "ssm_scan": 0, "wkv6": 0,
+            "ring_apply_lane_events": want.get("ring_apply", 0), **want}
     if counts != full:
         raise AssertionError(f"{what} launches {counts}, expected {full}")
 
@@ -1037,7 +1277,7 @@ def time_library(fn, kern_w, reps):
     """(ms of one library call, max |library − kernel|)."""
     out = fn()
     diff = float((out - kern_w).abs().max())
-    return cuda_ms(fn, reps), diff
+    return steady_ms(fn, reps), diff
 
 
 def time_kernel(name, D, c, K, opt, dtype, mode, whatif, dev, reps,
@@ -1051,7 +1291,7 @@ def time_kernel(name, D, c, K, opt, dtype, mode, whatif, dev, reps,
     spec = UpdateSpec(opt)
     ops = event_inputs(D, c, K, opt, dtype, whatif, 21, dev, **pulls)
     err = compare(ops, spec, mode, whatif, f"{name} at the path's shape")
-    ms = cuda_ms(lambda: run_kernel(ops, spec, mode, whatif), reps)
+    ms = steady_ms(lambda: run_kernel(ops, spec, mode, whatif), reps)
     plain_ms = cuda_ms(lambda: run_plain(ops, spec, mode, whatif),
                        plain_reps)
     nbytes, nops = event_cost(ops, opt, mode, whatif)
@@ -1090,7 +1330,7 @@ def time_ps(opt, mode, D, c, dev, reps, plain_reps):
     spec = UpdateSpec(opt)
     ops = ps_inputs(D, c, opt, 22, dev)
     err = ps_compare(ops, spec, mode, "ps_apply at the path's shape")
-    ms = cuda_ms(lambda: ps_kernel(ops, spec, mode), reps)
+    ms = steady_ms(lambda: ps_kernel(ops, spec, mode), reps)
     plain_ms = cuda_ms(lambda: ps_plain(ops, spec, mode), plain_reps)
     nbytes, nops = ps_cost(ops, opt, mode)
     bms, by = bound_ms(nbytes, nops)
@@ -1110,6 +1350,57 @@ def time_ps(opt, mode, D, c, dev, reps, plain_reps):
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "max_abs_err": err, "library_ms": lib_ms}
+
+
+def time_copy(dev, nbytes=4 * 128 * WIDE_D, reps=10):
+    """The card's practical memory rate: a device-to-device copy of
+    ``nbytes`` (the wide lanes' g), (bytes read + written) / time."""
+    import torch
+    src = torch.empty(nbytes // 4, device=dev)
+    dst = torch.empty_like(src)
+    ms = steady_ms(lambda: dst.copy_(src), reps)
+    rate = 2 * nbytes / (ms * 1e-3)
+    log(f"  copy of {nbytes / 1e9:.2f} GB: {ms:.4f} ms, {rate / 1e12:.3f} "
+        f"TB/s read + written ({rate / PEAK_BYTES_PER_S:.3f} of the data "
+        f"sheet's {PEAK_BYTES_PER_S / 1e12} TB/s)")
+    del src, dst
+    torch.cuda.empty_cache()
+    return rate
+
+
+def time_paper_shape(dev, lanes=4, reps=500):
+    """``ring_apply`` at the paper shape (D 2 762, c 30, momentum, fp32):
+    one launch of one ring (its 1-wide loads), and ``lanes`` lanes in one
+    launch against ``lanes`` launches.  Each held bitwise against the plain
+    version first."""
+    from repro_torch.optim import UpdateSpec
+    spec = UpdateSpec("momentum")
+    out = {}
+    one = event_inputs(2_762, 30, 2, "momentum", "fp32", False, 41, dev)
+    compare(one, spec, "combine", False, "ring_apply at the paper shape")
+    out["one ring"] = cuda_ms(
+        lambda: run_kernel(one, spec, "combine", False), reps, warmup=10)
+    ops = lane_inputs(lanes, 2_762, 30, 2, "momentum", "fp32", False, 42,
+                      dev)
+    lanes_compare(ops, spec, "combine",
+                  "ring_apply lanes at the paper shape")
+    from repro_torch.kernels import replay_ring
+    out[f"{lanes} lanes, one launch"] = cuda_ms(
+        lambda: replay_ring.ring_apply(
+            ops["ring"], ops["s"], ops["res"], ops["g"], ops["coef"],
+            ops["lrs"], ops["idx"], spec=spec), reps, warmup=10)
+
+    def per_lane():
+        for b in range(lanes):
+            replay_ring.ring_apply(ops["ring"][b], ops["s"][b], None,
+                                   ops["g"][b], ops["coef"], ops["lrs"][b],
+                                   ops["idx"], spec=spec)
+    out[f"{lanes} lanes, {lanes} launches"] = cuda_ms(per_lane, reps,
+                                                      warmup=10)
+    log("  ring_apply at the paper shape (D 2762, c 30, momentum, fp32), "
+        "per call: " + "; ".join(f"{k} {v * 1e3:.2f} us"
+                                 for k, v in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1962,9 +2253,11 @@ def phase_cells(dev, launches, keep):
             by_address = {r["spec_hash"]: r for r in ref["records"]}
             card_dir, cpu_dir = (Path(tmp) / name / d for d in ("card",
                                                                  "cpu"))
-            derived, secs, counts = counted(lambda: campaign.run_cell(
-                name, results_dir=str(card_dir), device=dev))
+            with LaneGroups() as groups:
+                derived, secs, counts = counted(lambda: campaign.run_cell(
+                    name, results_dir=str(card_dir), device=dev))
             env = registry.load_envelope(cell, str(card_dir))
+            group_note = groups.check(env, f"phase 11 {name}")
             shutil.copy(registry.results_path(cell, str(card_dir)), keep)
             cpu_metrics, cpu_paths, cpu_secs = {}, {}, None
             if name != "topology":          # topology's records: measure
@@ -2012,7 +2305,9 @@ def phase_cells(dev, launches, keep):
             if name == "topology":   # its derive times 2 + 2 replays
                 events += 4 * derived["engine_overhead_cell"]["updates"]
             launches["ring_apply"] += counts["ring_apply"]
-            expect(counts, f"phase 11 {name}", ring_apply=events)
+            expect(counts, f"phase 11 {name}",
+                   ring_apply=groups.launches(events),
+                   ring_apply_lane_events=events)
             paths = {}
             for r in env["records"]:
                 p = r["runtime"]["replay_path"]
@@ -2020,8 +2315,10 @@ def phase_cells(dev, launches, keep):
             log(f"  {name}: {len(env['records'])} records ({paths}), every "
                 f"record's schedule side equal to the envelope's; claims "
                 f"ok {sorted(claims)}; ring_apply launches "
-                f"{counts['ring_apply']} (reckoned {events}); {secs:.1f} s, "
-                f"{counts['ring_apply'] / secs:.1f} events/s")
+                f"{counts['ring_apply']} (reckoned "
+                f"{groups.launches(events)}: {group_note}, one launch per "
+                f"event), lane events {events}; {secs:.1f} s, "
+                f"{events / secs:.1f} events/s")
             if cpu_secs is not None:
                 log(f"    max |card - envelope| "
                     + ", ".join(f"{k} {v}" for k, v in worst.items())
@@ -2061,9 +2358,10 @@ ANALYTIC_CELLS = ("table1", "fig8")
 REPLAY_CELLS = ("fig5", "fig6_7", "table2")
 LEGACY_CELLS = ("baselines", "table3_4")
 TIMING_CELLS = ("sim_engine", "kernels", "bench_guard")
-# worker processes for the CPU twins (the longest, table3_4's, takes about
-# as long as all the others together)
-CPU_TWIN_WORKERS = 2
+# worker processes for the CPU twins, one torch thread each (started after
+# phase 7, they run beside phases 8-12; the longest, table3_4's, takes
+# about as long as fig6_7's and table2's together)
+CPU_TWIN_WORKERS = 3
 # run order: sim_engine before table3_4, whose summary folds it in;
 # bench_guard runs in phase 13, after the distributed cell it measures too
 PHASE12_CELLS = ANALYTIC_CELLS + ("fig4",) + REPLAY_CELLS + (
@@ -2195,47 +2493,55 @@ def held_against_cpu(name, env, cpu_env) -> dict:
 
 
 def replay_events(env) -> int:
-    """ring_apply launches a spec cell's records reckon: one per replayed
-    event and lane (each record is a lane)."""
+    """The lane events a spec cell's records reckon: one per replayed event
+    and record (each record is a lane)."""
     return sum(r["runtime"]["updates"] for r in env["records"]
                if r["runtime"]["replay_path"] != "measure")
 
 
-def phase_paper_cells(dev, launches, keep):
+def start_cpu_twins(tmp):
+    """Phase 12's CPU twins in ``CPU_TWIN_WORKERS`` worker processes, the
+    longest first, each into a directory of its own under ``tmp``; started
+    after phase 7's timings, so that the card's phases 8-12 seldom wait
+    for them: (the pool, {cell: future})."""
+    twins = sorted((n for n in PHASE12_CELLS
+                    if n not in TIMING_CELLS and n != "fig4"),
+                   key=lambda n: n not in ("table3_4", "fig6_7"))
+    pool = ProcessPoolExecutor(
+        max_workers=CPU_TWIN_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    return pool, {n: pool.submit(cpu_twin, n, str(Path(tmp) / n))
+                  for n in twins}
+
+
+def phase_paper_cells(dev, launches, keep, cpu_runs):
     """Phase 12: the rest of the paper campaign and the smoke campaign
-    through ``campaign.run_cell`` on the card (see the module docstring);
-    sim_engine's card envelope is copied to ``keep``."""
+    through ``campaign.run_cell`` on the card (see the module docstring),
+    each cell held against its CPU twin from ``cpu_runs``; sim_engine's
+    card envelope is copied to ``keep``."""
     import tempfile
 
     from repro_torch.experiments import campaign, registry
 
     with tempfile.TemporaryDirectory(prefix="results_torch_") as tmp:
         def on_card(name, **kw):
-            _, secs, counts = counted(lambda: campaign.run_cell(
-                name, results_dir=str(Path(tmp) / "card"), device=dev, **kw))
+            with LaneGroups() as groups:
+                _, secs, counts = counted(lambda: campaign.run_cell(
+                    name, results_dir=str(Path(tmp) / "card"), device=dev,
+                    **kw))
             return (registry.load_envelope(name, str(Path(tmp) / "card")),
-                    secs, counts)
+                    secs, counts, groups)
 
-        # the CPU twins run in worker processes while the card runs the
-        # cells, the longest first, each into a directory of its own
-        twins = sorted((n for n in PHASE12_CELLS
-                        if n not in TIMING_CELLS and n != "fig4"),
-                       key=lambda n: n not in ("table3_4", "fig6_7"))
-        pool = ProcessPoolExecutor(
-            max_workers=CPU_TWIN_WORKERS,
-            mp_context=multiprocessing.get_context("spawn"))
-        cpu_runs = {n: pool.submit(cpu_twin, n, str(Path(tmp) / "cpu" / n))
-                    for n in twins}
-        try:
-            phase12_loop(dev, launches, keep, tmp, on_card, cpu_runs)
-        finally:
-            pool.shutdown(cancel_futures=True)
+        phase12_loop(dev, launches, keep, tmp, on_card, cpu_runs)
 
 
 def cpu_twin(name, results_dir):
-    """One phase-12 cell on the CPU, in a worker process (torch's default
-    threads, as the twins had in this process): (its envelope, seconds)."""
+    """One phase-12 cell on the CPU, in a worker process with one torch
+    thread (the twins share the host with the card's process):
+    (its envelope, seconds)."""
     sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(1)
     from repro_torch.experiments import campaign, registry
     t0 = time.perf_counter()
     campaign.run_cell(name, results_dir=results_dir, device="cpu")
@@ -2244,23 +2550,26 @@ def cpu_twin(name, results_dir):
 
 
 def phase12_loop(dev, launches, keep, tmp, on_card, cpu_runs):
-    """Phase 12's cells on the card, each held against its CPU twin from
-    ``cpu_runs`` (futures), then the smoke campaign."""
+    """Phase 12's cells on the card, all of them first, then each held
+    against its CPU twin from ``cpu_runs`` (futures: the card never waits
+    for a twin while it has a cell to run), then the smoke campaign."""
     import shutil
 
     from repro_torch.experiments import campaign, registry
     from repro_torch.experiments.cells import bench_guard
+    ran = {}
     for name in PHASE12_CELLS:
-        cell = registry.get_cell(name)
         if name in TIMING_CELLS:
             timing_cell(name, on_card, launches, bench_guard)
             if name == "sim_engine":
                 shutil.copy(registry.results_path(
-                    cell, str(Path(tmp) / "card")), keep)
+                    registry.get_cell(name), str(Path(tmp) / "card")), keep)
             continue
+        ran[name] = on_card(name)
+    for name, (env, secs, counts, groups) in ran.items():
+        cell = registry.get_cell(name)
         ref = json.loads((ROOT / "benchmarks" / "results"
                           / f"{cell.result}.json").read_text())
-        env, secs, counts = on_card(name)
         cpu_env = cpu_secs = None
         if name != "fig4":
             cpu_env, cpu_secs = cpu_runs[name].result()
@@ -2283,7 +2592,10 @@ def phase12_loop(dev, launches, keep, tmp, on_card, cpu_runs):
             worst = held_records(name, env, ref, tol)
             worst_cpu = held_against_cpu(name, env, cpu_env)
             events = replay_events(env)
-            expect(counts, f"phase 12 {name}", ring_apply=events)
+            group_note = groups.check(env, f"phase 12 {name}")
+            expect(counts, f"phase 12 {name}",
+                   ring_apply=groups.launches(events),
+                   ring_apply_lane_events=events)
             launches["ring_apply"] += counts["ring_apply"]
             paths = {}
             for r in env["records"]:
@@ -2291,8 +2603,10 @@ def phase12_loop(dev, launches, keep, tmp, on_card, cpu_runs):
                 paths[p] = paths.get(p, 0) + 1
             note = (f"{len(env['records'])} records ({paths}), schedule "
                     f"sides equal to the envelope's; ring_apply "
-                    f"{counts['ring_apply']} (reckoned {events}), "
-                    f"{counts['ring_apply'] / secs:.1f} events/s; max "
+                    f"{counts['ring_apply']} (reckoned "
+                    f"{groups.launches(events)}: {group_note}, one launch "
+                    f"per event), lane events {events}, "
+                    f"{events / secs:.1f} events/s; max "
                     f"|card - envelope| {worst} (tolerance {tol}); max "
                     f"|card - cpu| {worst_cpu} (tolerance "
                     f"{CARD_VS_CPU_TOL}; CHAOTIC records their own)")
@@ -2338,7 +2652,7 @@ def timing_cell(name, on_card, launches, bench_guard):
     bench_guard on the card: claims ok, their numbers printed; sim_engine
     launches every update kernel, its what-if row one ``ring_apply_whatif``
     per event of its warm-up and three timed runs."""
-    env, secs, counts = on_card(name, quick=name == "sim_engine")
+    env, secs, counts = on_card(name, quick=name == "sim_engine")[:3]
     claims = held_claims(name, env)
     d = env["derived"]
     if name == "sim_engine":
@@ -3520,7 +3834,9 @@ def main() -> int:
             log(f"    {ln}")
     for name in ("flash_attention_sm90", "flash_attention"):
         sass_counts(libs[name], build.nvcc())
-    ptxas_by_kernel(libs["replay_ring"], ("ring_apply_whatif_kernel",))
+    ptxas_by_kernel(libs["replay_ring"], ("ring_apply_whatif_kernel",
+                                          "simple_kernel"))
+    ptxas_by_kernel(libs["ps_update"], ("simple_kernel",))
     ptxas_by_kernel(libs["ssm_scan"], ("ssd_cb_kernel", "ssd_state_kernel",
                                        "ssd_pass_kernel", "ssd_out_kernel"))
     wkv_regs = ptxas_by_kernel(libs["wkv6"], WKV_KERNELS)
@@ -3579,6 +3895,8 @@ def main() -> int:
                         slot_pulled=True, long_runs=long_runs)
     t_ps = time_ps("sgd", "combine", WIDE_D, 128, dev, 20, 5)
     time_ps("momentum", "combine", WIDE_D, 128, dev, 20, 5)
+    time_copy(dev)
+    time_paper_shape(dev)
     t_flash = time_flash(dev, 32768)
     if max(r["ms"] for r in t_flash.values()) > 2000:
         log("  over 2 s per launch at S = 32768: timed at S = 8192 instead")
@@ -3587,39 +3905,54 @@ def main() -> int:
     t_ssm, t_wkv = time_scans(dev)
     log(f"  phase 7 in {time.perf_counter() - t7:.1f} s")
 
-    for phase, arch, fp32_limit in SERVING:
-        log(f"phase {phase}: serving — {arch}, full width and depth, bf16, "
-            f"attn_impl='pallas', use_pallas=True")
-        tp = time.perf_counter()
-        phase_serving(phase, arch, fp32_limit, dev, launches)
-        log(f"  phase {phase} in {time.perf_counter() - tp:.1f} s")
-
+    # phase 12's CPU twins run beside the card from here on (phases 8-12),
+    # after every kernel timing of phase 7
     import tempfile
-    with tempfile.TemporaryDirectory(prefix="results_torch_") as keep:
-        log("phase 11: the paper cells elastic, topology and serve at "
-            "their default params through campaign.run_cell, against "
-            "benchmarks/results/*.json")
-        t11 = time.perf_counter()
-        phase_cells(dev, launches, keep)
-        log(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
-        log("phase 12: the rest of the paper campaign (table1, fig8, fig4, "
-            "fig5, fig6_7, table2, baselines, sim_engine, table3_4, "
-            "kernels) and the smoke campaign through campaign.run_cell, "
-            "against benchmarks/results/*.json and the same cells on the "
-            "CPU")
-        t12 = time.perf_counter()
-        phase_paper_cells(dev, launches, keep)
-        log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
-        log("phase 13: the ring cell, SPMD placement, the distributed "
-            "cell, table3_4 with five deps and bench_guard")
-        t13 = time.perf_counter()
-        phase_ring_distributed(dev, launches, Path(keep))
-        log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
-        log("phase 14: the training engines at qwen2_1_5b's full width, "
-            "fidelity, checkpoints, the train CLI, the cnn cell")
-        t14 = time.perf_counter()
-        phase_training(dev, launches, Path(keep))
-        log(f"  phase 14 in {time.perf_counter() - t14:.1f} s")
+    twins_dir = tempfile.TemporaryDirectory(prefix="cpu_twins_")
+    twin_pool, cpu_runs = start_cpu_twins(twins_dir.name)
+    log(f"  phase 12's {len(cpu_runs)} CPU twins started in "
+        f"{CPU_TWIN_WORKERS} worker processes")
+
+    def stop_twins():
+        twin_pool.shutdown(cancel_futures=True)
+        twins_dir.cleanup()
+
+    try:
+        for phase, arch, fp32_limit in SERVING:
+            log(f"phase {phase}: serving — {arch}, full width and depth, "
+                f"bf16, attn_impl='pallas', use_pallas=True")
+            tp = time.perf_counter()
+            phase_serving(phase, arch, fp32_limit, dev, launches)
+            log(f"  phase {phase} in {time.perf_counter() - tp:.1f} s")
+
+        with tempfile.TemporaryDirectory(prefix="results_torch_") as keep:
+            log("phase 11: the paper cells elastic, topology and serve at "
+                "their default params through campaign.run_cell, against "
+                "benchmarks/results/*.json")
+            t11 = time.perf_counter()
+            phase_cells(dev, launches, keep)
+            log(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
+            log("phase 12: the rest of the paper campaign (table1, fig8, "
+                "fig4, fig5, fig6_7, table2, baselines, sim_engine, "
+                "table3_4, kernels) and the smoke campaign through "
+                "campaign.run_cell, against benchmarks/results/*.json and "
+                "the same cells on the CPU")
+            t12 = time.perf_counter()
+            phase_paper_cells(dev, launches, keep, cpu_runs)
+            stop_twins()
+            log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
+            log("phase 13: the ring cell, SPMD placement, the distributed "
+                "cell, table3_4 with five deps and bench_guard")
+            t13 = time.perf_counter()
+            phase_ring_distributed(dev, launches, Path(keep))
+            log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
+            log("phase 14: the training engines at qwen2_1_5b's full "
+                "width, fidelity, checkpoints, the train CLI, the cnn cell")
+            t14 = time.perf_counter()
+            phase_training(dev, launches, Path(keep))
+            log(f"  phase 14 in {time.perf_counter() - t14:.1f} s")
+    finally:
+        stop_twins()
     log("phase 15: MoE and the modality frontends at full width "
         "(llama4_maverick one unit, arctic 2 layers, qwen3_14b, "
         "starcoder2_7b, hubert_xlarge, internvl2_2b), card against CPU, "

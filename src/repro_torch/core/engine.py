@@ -55,7 +55,8 @@ segment ends and in the serving evaluation after the loop.
 
 :func:`replay_batch` replays B shape-compatible traces as one (B, K, D)
 ring: one ``grad_fn`` call over B·c slots per event, then one
-``ring_apply`` launch per lane on its contiguous ring view.
+``ring_apply`` launch over all B lanes (the ``fused`` and ``stock`` bodies
+run per lane on its contiguous ring view).
 
 ``placement="spmd"`` (DESIGN.md §13) replays the trace on a mesh of
 ``torch.distributed`` ranks (``launch/mesh.py``): each "ps" rank owns one
@@ -814,6 +815,9 @@ def _replay_spmd(trace: ArrivalTrace, run: RunConfig, *, spec, grad_fn,
     replay_ring.rank_launches = counts
     for k in replay_ring.launches:
         replay_ring.launches[k] += sum(c[k] for c in counts)
+    # a rank's launch is one lane's event
+    replay_ring.lane_events["ring_apply"] += sum(c["ring_apply"]
+                                                 for c in counts)
     res.params = tree_map(lambda t: t.to(device), res.params)
     return res
 
@@ -833,8 +837,11 @@ def replay_batch(traces: Sequence[ArrivalTrace],
     ``c``, mode), optimizer spec, ring storage, ``grad_fn`` and parameter
     layout differ only in data — ring indices, LRs, coefficients and
     minibatches.  Each event computes the B·c gradients of all lanes in
-    ONE ``grad_fn`` call, then applies one ``ring_apply`` launch per lane
-    on ``ring[b]`` (a contiguous view, written in place).  The ring is
+    ONE ``grad_fn`` call, then applies them: with ``ring_impl`` resolving
+    to ``kernel``, ONE ``ring_apply`` launch over every lane (the lane
+    axis, the counterpart of the reference's ``jax.vmap`` of its
+    ``pallas_call``); ``fused`` and ``stock`` per lane on ``ring[b]`` (a
+    contiguous view, written in place).  The ring is
     sized to the group's largest staleness (ring size never changes the
     math, only which row a snapshot lands in).
 
@@ -942,6 +949,11 @@ def replay_batch(traces: Sequence[ArrivalTrace],
     del xs_lanes
     static_coef = torch.full((c,), 1.0 / c, dtype=torch.float32, device=dev)
     lane_base = (torch.arange(B, device=dev) * K)[:, None]
+    if impl == "kernel":
+        # event-major (steps, B, c) rows: each event's lane operands are one
+        # contiguous (B, c) block for the one launch over every lane
+        lrs_ev = lrs.transpose(0, 1).contiguous()
+        coefs_ev = coefs.transpose(0, 1).contiguous() if masked else None
 
     def event(j: int) -> None:
         rows = (lane_base + ts[:, j]).reshape(-1)           # (B·c,)
@@ -951,6 +963,11 @@ def replay_batch(traces: Sequence[ArrivalTrace],
             tree_map(lambda t: t[:, j].reshape((B * c,) + t.shape[3:]),
                      batch))).view(B, c, D)
         del pulled
+        if impl == "kernel":     # one launch, the lanes its grid's axis
+            replay_ring.ring_apply(
+                ring, s, res, g, coefs_ev[j] if masked else static_coef,
+                lrs_ev[j], idx[j], spec=spec, mode=mode)
+            return
         for b in range(B):
             sb = None if s is None else s[b]
             s2 = _ring_event(impl, spec, ring[b], sb,

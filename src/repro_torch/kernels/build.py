@@ -21,7 +21,8 @@ through the runtime, so no source links against anything but cudart.
 
 The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``,
 ``ssm_scan.py``, ``wkv6.py``) share the binding helpers below: operand
-checks, the 16-byte vector-path tests and the launch error check.
+checks, the 16-byte vector-path tests, the update kernels' largest c and
+the launch error check.
 """
 
 from __future__ import annotations
@@ -166,6 +167,29 @@ def vec4(D: int, *tensors) -> int:
     ok = D % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
                             for t in tensors if t is not None)
     return int(ok)
+
+
+# coef and lrs in the update kernels' shared memory, 8c bytes within the
+# 48 KB a launch takes without opting in (csrc/update_event.cuh: MAX_SLOTS)
+MAX_SLOTS = 6144
+
+
+def check_max_slots(lib: ctypes.CDLL, prefix: str) -> None:
+    """Raise unless the built library takes the :data:`MAX_SLOTS` the
+    wrappers check."""
+    fn = getattr(lib, f"{prefix}_max_slots")
+    fn.restype = ctypes.c_int
+    if fn() != MAX_SLOTS:
+        raise RuntimeError(f"{prefix}_max_slots() = {fn()}, expected "
+                           f"{MAX_SLOTS}")
+
+
+def check_slots(c: int) -> None:
+    """Raise unless 1 <= c <= MAX_SLOTS (coef and lrs must fit the
+    kernels' shared memory)."""
+    if not 1 <= c <= MAX_SLOTS:
+        raise ValueError(f"c = {c} gradients; the update kernels take 1 to "
+                         f"{MAX_SLOTS} (coef and lrs in shared memory)")
 
 
 def vec8(D: int, *tensors) -> int:

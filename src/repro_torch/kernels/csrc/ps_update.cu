@@ -10,7 +10,8 @@
 //               (w, s) = update_event(w, s, acc, lrs[0])
 //   sequential: for j: (w, s) = update_event(w, s, coef[j] * g[j, e], lrs[j])
 //   w_out[e] = w; s_out[e] = s
-// The math is update_event.cuh's, the same code ring_apply runs.
+// The math and the schedule are update_event.cuh's, the same code
+// ring_apply runs; this file gives them the PS's operands (PsOp).
 //
 // OUT OF PLACE: w / s are read and new w_out / s_out written, as the
 // reference's pallas_call makes new arrays.  The host PS hands learners the
@@ -19,12 +20,11 @@
 //
 // Bound: memory.  Per update the kernel moves D * (4c [staged g] + 4 [w] +
 // 4 [w_out] + 8 [s, s_out when stateful]) bytes for 2c + a few fp32
-// operations per element.  The design is the simple one: a 1-D
-// grid-stride loop over D, each thread owning V contiguous elements (V = 4
-// with 16-byte vector loads when D % 4 == 0 and the bases are aligned; V = 1
-// on a ragged D, whose edge the loop bound masks).  coef / lrs are read from
-// device tensors and staged once per block in shared memory: the host never
-// reads them back.
+// operations per element.  The schedule is update_event.cuh's grid-stride
+// loop, V = 4 with 16-byte loads when D % 4 == 0 and the bases are aligned,
+// V = 1 on a ragged D (the paper's D 2 762, the cnn cell's 89 578), whose
+// edge the loop bound masks.  coef / lrs are read from device tensors and
+// staged in shared memory: the host never reads them back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,26 +35,18 @@ namespace {
 
 using namespace update_math;
 
-// shared memory: coef[c], lrs[c]
-template <int OPT, bool SEQ, int V>
-__global__ void __launch_bounds__(THREADS)
-ps_apply_kernel(const float* __restrict__ w, const float* __restrict__ s,
-                const float* __restrict__ g, const float* __restrict__ coef,
-                const float* __restrict__ lrs, float* __restrict__ w_out,
-                float* __restrict__ s_out, int64_t D, int c, float m,
-                float eps) {
-  extern __shared__ float smem[];
-  float* sc = smem;
-  float* sl = smem + c;
-  for (int j = threadIdx.x; j < c; j += blockDim.x) {
-    sc[j] = coef[j];
-    sl[j] = lrs[j];
-  }
-  __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x * V;
-  for (int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * V;
-       e < D; e += stride) {
-    float wv[V], sv[V];
+// The per-element operands of one update (one lane): w and s in, w_out and
+// s_out out (s / s_out null for sgd).
+template <int OPT>
+struct PsOp {
+  const float* w;
+  const float* s;
+  float* w_out;
+  float* s_out;
+
+  template <int V>
+  __device__ __forceinline__ void load(int, int64_t e, float* wv,
+                                       float* sv) const {
     ld<V>(w + e, wv);
     if (OPT != OPT_SGD) {
       ld<V>(s + e, sv);
@@ -62,43 +54,35 @@ ps_apply_kernel(const float* __restrict__ w, const float* __restrict__ s,
 #pragma unroll
       for (int v = 0; v < V; ++v) sv[v] = 0.f;
     }
-    staged_events<OPT, SEQ, V>(wv, sv, g, D, e, c, sc, sl, m, eps);
+  }
+  template <int V>
+  __device__ __forceinline__ void store(int, int64_t e, const float* wv,
+                                        const float* sv) const {
     st<V>(w_out + e, wv);
     if (OPT != OPT_SGD) st<V>(s_out + e, sv);
   }
-}
-
-template <int OPT, bool SEQ, int V>
-void launch(const void* w, const void* s, const void* g, const void* coef,
-            const void* lrs, void* w_out, void* s_out, int64_t D, int c,
-            float m, float eps, cudaStream_t st) {
-  ps_apply_kernel<OPT, SEQ, V>
-      <<<blocks_for(D, V), THREADS, 2 * c * sizeof(float), st>>>(
-          static_cast<const float*>(w), static_cast<const float*>(s),
-          static_cast<const float*>(g), static_cast<const float*>(coef),
-          static_cast<const float*>(lrs), static_cast<float*>(w_out),
-          static_cast<float*>(s_out), D, c, m, eps);
-}
+  __device__ __forceinline__ void event(float& w_, float& s_, float g,
+                                        float lr, float m, float eps) const {
+    update_event<OPT>(w_, s_, g, lr, m, eps);
+  }
+};
 
 template <int OPT>
-void launch_mode(int seq, int vec4, const void* w, const void* s,
-                 const void* g, const void* coef, const void* lrs,
-                 void* w_out, void* s_out, int64_t D, int c, float m,
-                 float eps, cudaStream_t st) {
-  if (seq) {
-    if (vec4) launch<OPT, true, 4>(w, s, g, coef, lrs, w_out, s_out, D, c, m, eps, st);
-    else launch<OPT, true, 1>(w, s, g, coef, lrs, w_out, s_out, D, c, m, eps, st);
-  } else {
-    if (vec4) launch<OPT, false, 4>(w, s, g, coef, lrs, w_out, s_out, D, c, m, eps, st);
-    else launch<OPT, false, 1>(w, s, g, coef, lrs, w_out, s_out, D, c, m, eps, st);
-  }
+cudaError_t launch(int seq, int vec4, const void* w, const void* s,
+                   void* w_out, void* s_out, const EventArgs& a,
+                   cudaStream_t st) {
+  const PsOp<OPT> op{static_cast<const float*>(w),
+                     static_cast<const float*>(s), static_cast<float*>(w_out),
+                     static_cast<float*>(s_out)};
+  return seq ? launch_events<PsOp<OPT>, true>(op, a, vec4, st)
+             : launch_events<PsOp<OPT>, false>(op, a, vec4, st);
 }
 
 }  // namespace
 
 // ---- plain C interface (loaded with ctypes) --------------------------------
 // Returns the cudaError_t of the launch (0 = launched).  s / s_out are null
-// for sgd.
+// for sgd; vec4: the 4-wide loads (kernels/build.py::vec4).
 extern "C" int ps_apply(const void* w, const void* s, const void* g,
                         const void* coef, const void* lrs, void* w_out,
                         void* s_out, long long D, int c, int opt,
@@ -106,17 +90,22 @@ extern "C" int ps_apply(const void* w, const void* s, const void* g,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using namespace update_math;
+  const EventArgs a{static_cast<const float*>(g),
+                    static_cast<const float*>(coef),
+                    static_cast<const float*>(lrs), D, D, 1, c, 0, 0,
+                    momentum, eps};
+  cudaError_t err;
   if (opt == OPT_SGD)
-    launch_mode<OPT_SGD>(sequential, vec4, w, s, g, coef, lrs, w_out, s_out,
-                         D, c, momentum, eps, st);
+    err = launch<OPT_SGD>(sequential, vec4, w, s, w_out, s_out, a, st);
   else if (opt == OPT_MOMENTUM)
-    launch_mode<OPT_MOMENTUM>(sequential, vec4, w, s, g, coef, lrs, w_out,
-                              s_out, D, c, momentum, eps, st);
+    err = launch<OPT_MOMENTUM>(sequential, vec4, w, s, w_out, s_out, a, st);
   else
-    launch_mode<OPT_ADAGRAD>(sequential, vec4, w, s, g, coef, lrs, w_out,
-                             s_out, D, c, momentum, eps, st);
-  return (int)cudaGetLastError();
+    err = launch<OPT_ADAGRAD>(sequential, vec4, w, s, w_out, s_out, a, st);
+  return (int)err;
 }
+
+// The largest c the shared-memory plan takes (kernels/build.py checks it).
+extern "C" int ps_update_max_slots() { return update_math::MAX_SLOTS; }
 
 extern "C" const char* ps_update_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

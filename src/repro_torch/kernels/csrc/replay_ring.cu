@@ -4,7 +4,8 @@
 //   ring_apply        <- ring_apply / _apply_kernel / _tile_events
 //   ring_apply_whatif <- ring_apply_whatif / _whatif_kernel
 //
-// One event, element by element over the flat (K, D) ring:
+// One event, element by element over the flat (K, D) ring (ring_apply: of
+// each of B lanes, a (B, K, D) ring in one launch):
 //   w = float(ring[prev, i]) (+ res[i])          read row prev, re-add residue
 //   combine:    acc = sum_j coef[j] * g[j, i]     slot order 0..c-1
 //               (w, s) = update_event(w, s, acc, lrs[0])
@@ -12,17 +13,18 @@
 //   what-if:    g_j = a[i] * (float(ring[ts_j, i]) - wstar[i])  (in the kernel)
 //   q = round(w) to the ring type; ring[slot, i] = q; res[i] = w - float(q)
 //
-// Bound, ring_apply: memory.  Per event the kernel moves D * (ring bytes
-// read + 4c [staged g] + 8 [state r/w] + 8 [residue r/w] + ring bytes
-// written); the arithmetic is a few fp32 operations per byte.  The design is
-// the simple one: a 1-D grid-stride loop over D, each thread owning V
-// contiguous elements (V = 4 with 16-byte vector loads when D % 4 == 0, so
-// every row start is aligned; V = 1 on a ragged D).  The ragged edge is
-// masked by the loop bound.  prev / slot / ts come from a device int32 array
-// (no host sync; graph-capturable), and coef / lrs / ts are staged once per
-// block in shared memory.  Each element is read and written by the same
-// thread, and every read of element i precedes its write, so prev == slot
-// (K = 1) and slot in ts are safe.
+// Bound, ring_apply: memory.  Per event and lane the kernel moves D * (ring
+// bytes read + 4c [staged g] + 8 [state r/w] + 8 [residue r/w] + ring bytes
+// written); the arithmetic is a few fp32 operations per byte.  Its
+// schedule is update_event.cuh's, shared with ps_update.cu; this file gives
+// it the ring's operands (RingOp): a grid-stride loop, V = 4 elements a
+// thread with 16-byte loads when D % 4 == 0 and the bases are aligned, else
+// V = 1 with the ragged edge masked by the loop bound (the paper's D 2 762).
+// The B lanes are gridDim.y; coef is one (c,) row for every lane or a
+// (B, c) row per lane (elastic masks), lrs a (B, c) row per lane.  prev /
+// slot come from a device int32 array (no host sync; graph-capturable),
+// shared by every lane.  Each element is read and written by the same thread, and every
+// read of element i precedes its write, so prev == slot (K = 1) is safe.
 //
 // Bound, ring_apply_whatif: operations.  The slot-order sum is a multiply
 // and an add per slot and element (2c of them, separately rounded, so each
@@ -136,34 +138,42 @@ __device__ __forceinline__ void store_event(T* dst, float* s, float* res,
   }
 }
 
-// ---- ring_apply: staged gradients g (c, D) fp32 -----------------------------
-// shared memory: coef[c], lrs[c]
-template <typename T, int OPT, bool SEQ, bool EF, int V>
-__global__ void __launch_bounds__(THREADS)
-ring_apply_kernel(T* ring, float* s, float* res, const float* __restrict__ g,
-                  const float* __restrict__ coef,
-                  const float* __restrict__ lrs,
-                  const int32_t* __restrict__ idx, int64_t D, int c, float m,
-                  float eps) {
-  extern __shared__ float smem[];
-  float* sc = smem;
-  float* sl = smem + c;
-  for (int j = threadIdx.x; j < c; j += blockDim.x) {
-    sc[j] = coef[j];
-    sl[j] = lrs[j];
+// ---- ring_apply: staged gradients g (B, c, D) fp32 -------------------------
+// The per-element operands of one event on lane ``lane`` of a (B, K, D)
+// ring: row prev (+ residue) and the state in, row slot, the state and the
+// residue out (update_event.cuh's schedules call load, event, store).  Each
+// element is read and written by the same thread, every read of element i
+// before its write, so prev == slot (K = 1) is safe.
+template <typename T, int OPT, bool EF>
+struct RingOp {
+  T* ring;
+  float* s;
+  float* res;
+  const int32_t* idx;   // [prev, slot], shared by every lane
+  int64_t D;
+  int K;
+
+  template <int V>
+  __device__ __forceinline__ void load(int lane, int64_t e, float* w,
+                                       float* sv) const {
+    const int64_t l = (int64_t)lane * D;
+    load_event<T, OPT, EF, V>(ring + ((int64_t)lane * K + idx[0]) * D,
+                              OPT != OPT_SGD ? s + l : s,
+                              EF ? res + l : res, e, w, sv);
   }
-  __syncthreads();
-  const T* src = ring + (int64_t)idx[0] * D;
-  T* dst = ring + (int64_t)idx[1] * D;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x * V;
-  for (int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * V;
-       e < D; e += stride) {
-    float w[V], sv[V];
-    load_event<T, OPT, EF, V>(src, s, res, e, w, sv);
-    staged_events<OPT, SEQ, V>(w, sv, g, D, e, c, sc, sl, m, eps);
-    store_event<T, OPT, EF, V>(dst, s, res, e, w, sv);
+  template <int V>
+  __device__ __forceinline__ void store(int lane, int64_t e, const float* w,
+                                        const float* sv) const {
+    const int64_t l = (int64_t)lane * D;
+    store_event<T, OPT, EF, V>(ring + ((int64_t)lane * K + idx[1]) * D,
+                               OPT != OPT_SGD ? s + l : s,
+                               EF ? res + l : res, e, w, sv);
   }
-}
+  __device__ __forceinline__ void event(float& w, float& s_, float g,
+                                        float lr, float m, float eps) const {
+    update_event<OPT>(w, s_, g, lr, m, eps);
+  }
+};
 
 // ---- ring_apply_whatif: g_j = a * (ring[ts_j] - wstar), combine mode -------
 // Distinct pulled rows whose t_k = a * (ring[row_k] - wstar) a thread holds
@@ -356,18 +366,6 @@ ring_apply_whatif_kernel(T* ring, float* s, float* res,
   }
 }
 
-template <typename T, int OPT, bool SEQ, bool EF, int V>
-void launch_apply(void* ring, void* s, void* res, const void* g,
-                  const void* coef, const void* lrs, const void* idx,
-                  int64_t D, int c, float m, float eps, cudaStream_t st) {
-  ring_apply_kernel<T, OPT, SEQ, EF, V>
-      <<<blocks_for(D, V), THREADS, 2 * c * sizeof(float), st>>>(
-          static_cast<T*>(ring), static_cast<float*>(s),
-          static_cast<float*>(res), static_cast<const float*>(g),
-          static_cast<const float*>(coef), static_cast<const float*>(lrs),
-          static_cast<const int32_t*>(idx), D, c, m, eps);
-}
-
 template <typename T, int OPT, bool EF, int V>
 void launch_whatif(void* ring, void* s, void* res, const void* a,
                    const void* wstar, const void* coef, const void* lrs,
@@ -383,43 +381,29 @@ void launch_whatif(void* ring, void* s, void* res, const void* a,
 }
 
 // runtime flags -> template instantiation
-template <typename T, int OPT, bool SEQ, bool EF>
-void apply_v(int vec4, void* ring, void* s, void* res, const void* g,
-             const void* coef, const void* lrs, const void* idx, int64_t D,
-             int c, float m, float eps, cudaStream_t st) {
-  if (vec4)
-    launch_apply<T, OPT, SEQ, EF, 4>(ring, s, res, g, coef, lrs, idx, D, c, m,
-                                     eps, st);
-  else
-    launch_apply<T, OPT, SEQ, EF, 1>(ring, s, res, g, coef, lrs, idx, D, c, m,
-                                     eps, st);
-}
-
-template <typename T, int OPT>
-void apply_mode(int seq, int ef, int vec4, void* ring, void* s, void* res,
-                const void* g, const void* coef, const void* lrs,
-                const void* idx, int64_t D, int c, float m, float eps,
-                cudaStream_t st) {
-  if (seq) {
-    if (ef) apply_v<T, OPT, true, true>(vec4, ring, s, res, g, coef, lrs, idx, D, c, m, eps, st);
-    else apply_v<T, OPT, true, false>(vec4, ring, s, res, g, coef, lrs, idx, D, c, m, eps, st);
-  } else {
-    if (ef) apply_v<T, OPT, false, true>(vec4, ring, s, res, g, coef, lrs, idx, D, c, m, eps, st);
-    else apply_v<T, OPT, false, false>(vec4, ring, s, res, g, coef, lrs, idx, D, c, m, eps, st);
-  }
+template <typename T, int OPT, bool EF>
+cudaError_t apply_seq(int seq, int vec4, void* ring, void* s, void* res,
+                      const void* idx, int64_t D, int K,
+                      const EventArgs& a, cudaStream_t st) {
+  const RingOp<T, OPT, EF> op{static_cast<T*>(ring), static_cast<float*>(s),
+                              static_cast<float*>(res),
+                              static_cast<const int32_t*>(idx), D, K};
+  return seq ? launch_events<RingOp<T, OPT, EF>, true>(op, a, vec4, st)
+             : launch_events<RingOp<T, OPT, EF>, false>(op, a, vec4, st);
 }
 
 template <typename T>
-void apply_opt(int opt, int seq, int ef, int vec4, void* ring, void* s,
-               void* res, const void* g, const void* coef, const void* lrs,
-               const void* idx, int64_t D, int c, float m, float eps,
-               cudaStream_t st) {
+cudaError_t apply_opt(int opt, int seq, int ef, int vec4, void* ring,
+                      void* s, void* res, const void* idx, int64_t D, int K,
+                      const EventArgs& a, cudaStream_t st) {
   if (opt == OPT_SGD)
-    apply_mode<T, OPT_SGD>(seq, ef, vec4, ring, s, res, g, coef, lrs, idx, D, c, m, eps, st);
-  else if (opt == OPT_MOMENTUM)
-    apply_mode<T, OPT_MOMENTUM>(seq, ef, vec4, ring, s, res, g, coef, lrs, idx, D, c, m, eps, st);
-  else
-    apply_mode<T, OPT_ADAGRAD>(seq, ef, vec4, ring, s, res, g, coef, lrs, idx, D, c, m, eps, st);
+    return ef ? apply_seq<T, OPT_SGD, true>(seq, vec4, ring, s, res, idx, D, K, a, st)
+              : apply_seq<T, OPT_SGD, false>(seq, vec4, ring, s, res, idx, D, K, a, st);
+  if (opt == OPT_MOMENTUM)
+    return ef ? apply_seq<T, OPT_MOMENTUM, true>(seq, vec4, ring, s, res, idx, D, K, a, st)
+              : apply_seq<T, OPT_MOMENTUM, false>(seq, vec4, ring, s, res, idx, D, K, a, st);
+  return ef ? apply_seq<T, OPT_ADAGRAD, true>(seq, vec4, ring, s, res, idx, D, K, a, st)
+            : apply_seq<T, OPT_ADAGRAD, false>(seq, vec4, ring, s, res, idx, D, K, a, st);
 }
 
 template <typename T, int OPT>
@@ -453,20 +437,27 @@ void whatif_opt(int opt, int ef, int vec8, void* ring, void* s, void* res,
 
 // ---- plain C interface (loaded with ctypes) --------------------------------
 // Each returns the cudaError_t of its launch (0 = launched).
+// ring (B, K, D), s / res (B, D) or null, g (B, c, D), coef (c,) shared
+// (coef_stride 0) or (B, c) (coef_stride c), lrs (B, c), idx (2,) [prev,
+// slot] shared by every lane; vec4: the 4-wide loads (kernels/build.py::vec4).
 extern "C" int ring_apply(void* ring, int ring_bf16, void* s, void* res,
                           const void* g, const void* coef, const void* lrs,
-                          const void* idx, long long D, int c, int opt,
-                          int sequential, float momentum, float eps,
-                          int vec4, void* stream) {
+                          const void* idx, long long D, int K, int B, int c,
+                          int coef_stride, int opt, int sequential,
+                          float momentum, float eps, int vec4,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ef = res != nullptr;
-  if (ring_bf16)
-    apply_opt<__nv_bfloat16>(opt, sequential, ef, vec4, ring, s, res, g, coef,
-                             lrs, idx, D, c, momentum, eps, st);
-  else
-    apply_opt<float>(opt, sequential, ef, vec4, ring, s, res, g, coef, lrs,
-                     idx, D, c, momentum, eps, st);
-  return (int)cudaGetLastError();
+  const EventArgs a{static_cast<const float*>(g),
+                    static_cast<const float*>(coef),
+                    static_cast<const float*>(lrs), D, D, B, c, coef_stride,
+                    c, momentum, eps};
+  cudaError_t err =
+      ring_bf16 ? apply_opt<__nv_bfloat16>(opt, sequential, ef, vec4, ring, s,
+                                           res, idx, D, K, a, st)
+                : apply_opt<float>(opt, sequential, ef, vec4, ring, s, res,
+                                   idx, D, K, a, st);
+  return (int)err;
 }
 
 extern "C" int ring_apply_whatif(void* ring, int ring_bf16, void* s,
@@ -488,6 +479,9 @@ extern "C" int ring_apply_whatif(void* ring, int ring_bf16, void* s,
 
 // The distinct pulled rows the what-if kernel holds in registers.
 extern "C" int ring_apply_whatif_rows() { return WHATIF_ROWS; }
+
+// The largest c the shared-memory plan takes (kernels/build.py checks it).
+extern "C" int ring_apply_max_slots() { return MAX_SLOTS; }
 
 extern "C" const char* replay_ring_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

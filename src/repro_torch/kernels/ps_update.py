@@ -11,10 +11,10 @@ the whole flattened model:
   event at lrs[0];
 * ``sequential`` — c optimizer events, event i applying coefᵢ·Gᵢ at lrᵢ.
 
-The update math is ``csrc/update_event.cuh``, the header the replay-ring
-kernels include too.  The reference's ``(R, 128)`` tiling and padding
-served the TPU's layout only: here the buffers have width D and the kernel
-masks the ragged edge.
+The update math and its schedule are ``csrc/update_event.cuh``, the
+header the replay-ring kernels include too.  The reference's ``(R, 128)``
+tiling and padding served the TPU's layout only: here the buffers have
+width D and the kernel masks the ragged edge.
 
 ``ps_apply`` writes **new** w (and s) and never its inputs, as the
 reference's ``pallas_call`` makes new arrays: the host PS hands its weights
@@ -44,8 +44,8 @@ from repro_torch.optim.spec import UpdateSpec
 # kernel launches since the last reset_launches()
 launches = {"ps_apply": 0}
 
-# coef and lrs are staged in 48 KB of static-sized shared memory per block
-MAX_SLOTS = 48 * 1024 // 8
+# coef and lrs are staged in the kernel's shared memory: the largest c
+MAX_SLOTS = build.MAX_SLOTS
 
 
 def reset_launches() -> None:
@@ -61,6 +61,7 @@ def _library() -> ctypes.CDLL:
     lib.ps_apply.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i,
                              i, f, f, i, p]
     lib.ps_apply.restype = i
+    build.check_max_slots(lib, "ps_update")
     return lib
 
 
@@ -82,9 +83,7 @@ def ps_apply(w: torch.Tensor, s: Optional[torch.Tensor], g: torch.Tensor,
         raise ValueError(f"w must be (D,) and g (c, D), got "
                          f"{tuple(w.shape)} and {tuple(g.shape)}")
     (D,), c, dev = w.shape, g.shape[0], w.device
-    if not 1 <= c <= MAX_SLOTS:
-        raise ValueError(f"c = {c} gradients; the kernel takes 1 to "
-                         f"{MAX_SLOTS}")
+    build.check_slots(c)
     for name, t, shape in (("w", w, (D,)), ("s", s, (D,)), ("g", g, (c, D)),
                            ("coef", coef, (c,)), ("lrs", lrs, (c,))):
         build.check_operand(name, t, shape, torch.float32, dev)

@@ -10,20 +10,25 @@ bound with ``ctypes``.  One event:
 
 On this card ``ring_apply`` is memory-bound (a few fp32 operations per
 byte moved) and ``ring_apply_whatif`` bound by its slot-order sum (a
-multiply and an add per slot and element).  The what-if kernel reads each
-distinct pulled row once and forms its gⱼ once (up to
-:data:`WHATIF_ROWS` distinct rows, held in registers; an event with more
-takes a per-slot variant in the same launch); the source's header says
-why.  The
-reference's ``(rows, 128)`` tiling and ``padded_width`` served the TPU's
-layout only: here the ring has width D and the kernels mask the ragged edge.
+multiply and an add per slot and element).  ``ring_apply`` runs
+``csrc/update_event.cuh``'s schedule, shared with ``ps_apply``.  It also
+takes B lanes at once — a (B, K, D) ring, one launch per ``replay_batch``
+event, the counterpart of the reference's ``jax.vmap`` of its
+``pallas_call``.  The what-if kernel reads each distinct pulled row once
+and forms its gⱼ once (up to :data:`WHATIF_ROWS` distinct rows, held in
+registers; an event with more takes a per-slot variant in the same
+launch); the source's header says why.  The reference's ``(rows, 128)``
+tiling and ``padded_width`` served the TPU's layout only: here the ring
+has width D and the kernels mask the ragged edge.
 
 Each wrapper checks device, dtype, shape and contiguity, then launches the
 kernel on a CUDA tensor — or, for a CPU tensor, runs the plain PyTorch
 version (``optim/backends.py``) that the kernel is held against.  Nothing
 falls back: a CUDA call launches or raises.  ``launches`` counts kernel
 launches per wrapper (plain-version calls do not count), so a run can show
-that its events really went through the kernels.
+that its events really went through the kernels; ``lane_events`` counts
+the lane events ``ring_apply``'s launches applied (B per lane-axis
+launch).
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ from repro_torch.optim.spec import UpdateSpec
 # kernel launches per wrapper since the last reset_launches(), those of the
 # ranks an SPMD replay spawned from this process included
 launches = {"ring_apply": 0, "ring_apply_whatif": 0}
+# the lane events ring_apply's launches applied (one per launch and lane: B
+# for a replay_batch event)
+lane_events = {"ring_apply": 0}
 # per rank, the launches of the last SPMD replay this process spawned
 rank_launches = []
 
@@ -48,13 +56,16 @@ _RING_DTYPES = (torch.float32, torch.bfloat16)
 # distinct pulled rows the what-if kernel holds in registers
 # (csrc/replay_ring.cu: WHATIF_ROWS)
 WHATIF_ROWS = 4
+# coef and lrs are staged in ring_apply's shared memory: the largest c
+MAX_SLOTS = build.MAX_SLOTS
 
 Ring3 = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counter in (launches, lane_events):
+        for name in counter:
+            counter[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,7 +75,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("replay_ring")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ring_apply.argtypes = [p, i, p, p, p, p, p, p, ctypes.c_longlong,
-                               i, i, i, f, f, i, p]
+                               i, i, i, i, i, i, f, f, i, p]
     lib.ring_apply.restype = i
     lib.ring_apply_whatif.argtypes = [p, i, p, p, p, p, p, p, p,
                                       ctypes.c_longlong, i, i, f, f, i, p]
@@ -74,14 +85,17 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError(f"ring_apply_whatif_rows() = "
                            f"{lib.ring_apply_whatif_rows()}, expected "
                            f"{WHATIF_ROWS}")
+    build.check_max_slots(lib, "ring_apply")
     return lib
 
 
 def _check_event(spec: UpdateSpec, ring, s, res, c: int, coef, lrs, idx,
-                 n_idx: int) -> None:
+                 n_idx: int, lead=(), coef_lanes: bool = False) -> None:
+    """``lead``: the lane axis, () or (B,), of ring, s, res and lrs (and of
+    coef when ``coef_lanes``)."""
     if not spec.kernel_supported:
         raise ValueError(f"{spec.optimizer!r} has no kernel path")
-    if ring.dim() != 2 or ring.dtype not in _RING_DTYPES:
+    if ring.dim() != 2 + len(lead) or ring.dtype not in _RING_DTYPES:
         raise ValueError(f"ring must be (K, D) fp32 or bf16, got "
                          f"{tuple(ring.shape)} {ring.dtype}")
     if not ring.is_contiguous():
@@ -89,11 +103,12 @@ def _check_event(spec: UpdateSpec, ring, s, res, c: int, coef, lrs, idx,
     if (s is None) != (spec.optimizer == "sgd"):
         raise ValueError(f"{spec.optimizer} needs "
                          f"{'no' if s is None else 'a'} state vector")
-    D, dev = ring.shape[1], ring.device
-    build.check_operand("s", s, (D,), torch.float32, dev)
-    build.check_operand("res", res, (D,), torch.float32, dev)
-    build.check_operand("coef", coef, (c,), torch.float32, dev)
-    build.check_operand("lrs", lrs, (c,), torch.float32, dev)
+    D, dev = ring.shape[-1], ring.device
+    build.check_operand("s", s, lead + (D,), torch.float32, dev)
+    build.check_operand("res", res, lead + (D,), torch.float32, dev)
+    build.check_operand("coef", coef, (lead if coef_lanes else ()) + (c,),
+                        torch.float32, dev)
+    build.check_operand("lrs", lrs, lead + (c,), torch.float32, dev)
     build.check_operand("idx", idx, (n_idx,), torch.int32, dev)
 
 
@@ -102,35 +117,50 @@ def ring_apply(ring: torch.Tensor, s: Optional[torch.Tensor],
                coef: torch.Tensor, lrs: torch.Tensor, idx: torch.Tensor, *,
                spec: UpdateSpec, mode: str = "combine") -> Ring3:
     """ONE ring event with staged gradients, in place: read row ``idx[0]``,
-    apply the c-gradient update, write row ``idx[1]``.
+    apply the c-gradient update, write row ``idx[1]`` — of one ring, or of
+    each of B lanes in one launch.
 
-    ``ring`` (K, D) fp32 or bf16; ``s`` (D,) fp32 state or None (sgd);
-    ``res`` (D,) fp32 residue or None; ``g`` (c, D) fp32; ``coef``/``lrs``
-    (c,) fp32; ``idx`` (2,) int32 [prev, slot] on the ring's device.
-    Returns ``(ring, s, res)``, updated in place."""
+    One ring: ``ring`` (K, D) fp32 or bf16; ``s`` (D,) fp32 state or None
+    (sgd); ``res`` (D,) fp32 residue or None; ``g`` (c, D) fp32;
+    ``coef``/``lrs`` (c,) fp32.  B lanes (``replay_batch``'s, the
+    counterpart of the reference's ``jax.vmap`` over this event): ``ring``
+    (B, K, D), ``s``/``res`` (B, D), ``g`` (B, c, D), ``coef`` (c,) shared
+    or (B, c) (elastic masks), ``lrs`` (B, c).  ``idx`` (2,) int32
+    [prev, slot] on the ring's device, shared by every lane.  c is at most
+    :data:`MAX_SLOTS`.  Returns ``(ring, s, res)``, updated in place."""
     if mode not in ("combine", "sequential"):
         raise ValueError(f"unknown mode {mode!r}")
-    c = g.shape[0]
-    _check_event(spec, ring, s, res, c, coef, lrs, idx, 2)
-    build.check_operand("g", g, (c, ring.shape[1]), torch.float32,
-                        ring.device)
-    if ring.device.type == "cpu":
+    if ring.dim() not in (2, 3):
+        raise ValueError(f"ring must be (K, D) or (B, K, D), got "
+                         f"{tuple(ring.shape)}")
+    lead = tuple(ring.shape[:-2])               # () or (B,)
+    c = g.shape[-2] if g.dim() == len(lead) + 2 else -1
+    build.check_slots(c)
+    K, D, dev = ring.shape[-2], ring.shape[-1], ring.device
+    _check_event(spec, ring, s, res, c, coef, lrs, idx, 2, lead,
+                 coef_lanes=coef.dim() == 2)
+    build.check_operand("g", g, lead + (c, D), torch.float32, dev)
+    if dev.type == "cpu":
+        if lead:
+            return backends.apply_event_ring_lanes(
+                spec, ring, s, res, g, coef, lrs, idx[0], idx[1], mode)
         return backends.apply_event_ring(spec, ring, s, res, g, coef, lrs,
                                          idx[0], idx[1], mode)
-    if ring.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"ring_apply runs on cuda (kernel) or cpu (plain "
-                         f"version), not {ring.device.type}")
+                         f"version), not {dev.type}")
     lib = _library()
-    D = ring.shape[1]
+    B = lead[0] if lead else 1
     err = lib.ring_apply(
         ring.data_ptr(), int(ring.dtype == torch.bfloat16), build.ptr(s),
         build.ptr(res), g.data_ptr(), coef.data_ptr(), lrs.data_ptr(),
-        idx.data_ptr(), D, c, build.OPT_CODES[spec.optimizer],
-        int(mode == "sequential"), spec.momentum, spec.eps,
-        build.vec4(D, ring, s, res, g),
+        idx.data_ptr(), D, K, B, c, c if coef.dim() == 2 else 0,
+        build.OPT_CODES[spec.optimizer], int(mode == "sequential"),
+        spec.momentum, spec.eps, build.vec4(D, ring, s, res, g),
         torch.cuda.current_stream().cuda_stream)
     build.raise_on(lib, "replay_ring", err, "ring_apply")
     launches["ring_apply"] += 1
+    lane_events["ring_apply"] += B
     return ring, s, res
 
 

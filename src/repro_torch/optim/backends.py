@@ -368,6 +368,35 @@ def apply_event_ring(spec: UpdateSpec, ring, s, res, g, coef, lrs,
     return ring, s, res
 
 
+def apply_event_ring_lanes(spec: UpdateSpec, ring, s, res, g, coef, lrs,
+                           prev, slot, mode: str = "combine"):
+    """:func:`apply_event_ring` on each of B lanes at once, in place: the
+    plain version of ``kernels.replay_ring.ring_apply``'s lane axis.
+
+    ``ring`` (B, K, D); ``s``/``res`` (B, D) fp32 or None; ``g`` (B, c, D)
+    fp32; ``coef`` (c,) shared by every lane or (B, c); ``lrs`` (B, c);
+    ``prev``/``slot`` shared.  The event is elementwise, so each lane's
+    values are exactly :func:`apply_event_ring`'s on that lane: the same
+    operations in the same order, each lane's coefficient and learning
+    rate broadcast over its row."""
+    B = ring.shape[0]
+    w = ring.index_select(1, prev.reshape(1).to(torch.int64))[:, 0] \
+        .to(torch.float32)
+    if res is not None:
+        w = w + res
+    coef = coef if coef.dim() == 2 else coef[None].expand(B, -1)
+    # slot-major operands, each slot's (B, 1) coefficient and rate
+    w, s2 = apply_event_flat(spec, w, s, g.movedim(1, 0),
+                             coef.t()[..., None], lrs.t()[..., None], mode)
+    q = w.to(ring.dtype)
+    ring.index_copy_(1, slot.reshape(1).to(torch.int64), q[:, None])
+    if s is not None:
+        s.copy_(s2)
+    if res is not None:
+        res.copy_(w - q.to(torch.float32))
+    return ring, s, res
+
+
 def apply_event_ring_whatif(spec: UpdateSpec, ring, s, res, a, wstar, ts,
                             coef, lrs, prev, slot):
     """ONE ring event with closed-form gradients gⱼ = a ⊙ (ring[tsⱼ] − w*),
