@@ -1,0 +1,8 @@
+"""device_idle_pct.train: the share of the traced training window in
+which no operation ran on the device.  Moves ``train_tokens_per_s``."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s())
