@@ -80,7 +80,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import optim
+from repro_torch import obs, optim
 from repro_torch.config import RunConfig
 from repro_torch.core.lr_policies import resolve_trace_lrs
 from repro_torch.core.protocols import init_ps_state
@@ -375,49 +375,54 @@ def replay(trace: ArrivalTrace, run: RunConfig, *,
     elif (batch_fn is None) == (batches is None):
         raise ValueError("pass exactly one of batch_fn / batches")
 
-    params0 = {k: v.to(dev) for k, v in init_params.items()}
-    spec, opt_state = init_ps_state(run, params0)
-    layout = flatten.layout_of(params0)
-    flat0 = flatten.tree_to_flat(params0)
-    D = flat0.shape[0]
-    Dp = trace.topology.padded_width(D)
-    ef = run.ring_dtype == "bf16"
-    s = (flatten.tree_to_flat(opt_state[spec.state_keys[0]]).clone()
-         if spec.state_keys and spec.kernel_supported else None)
-    res = tree = None
-    if impl != "stock":
-        # one flat (K, width) ring in the ring dtype: the shard rows side
-        # by side when sharded (width S·Dp ≥ D; the padding zeros are inert)
-        width = D if S == 1 else S * Dp
-        flat_pad = flatten.pad_flat(flat0, width)
-        q0 = flat_pad.to(torch.bfloat16 if ef else torch.float32)
-        ring = q0[None].expand(K, width).contiguous()
-        res = (flat_pad - q0.to(torch.float32)) if ef else None
-        if s is not None:
-            s = flatten.pad_flat(s, width)
-        del flat_pad, q0
-    elif S > 1:
-        # the stock sharded body: per-shard (K, Dp) rings stacked (S, K, Dp)
-        ring = flatten.shard_pack(flat0, S, Dp)[:, None, :].expand(
-            S, K, Dp).contiguous()
-        if s is not None:
-            s = flatten.shard_pack(s, S, Dp)
-    else:
-        ring = flat0[None].expand(K, D).contiguous()
-        if not spec.kernel_supported:
-            tree = [params0, opt_state]     # adamw: the pytree carry
-    if tree is None:
-        del params0, opt_state
-    del flat0
+    with obs.span("stage"):
+        params0 = {k: v.to(dev) for k, v in init_params.items()}
+        spec, opt_state = init_ps_state(run, params0)
+        layout = flatten.layout_of(params0)
+        flat0 = flatten.tree_to_flat(params0)
+        D = flat0.shape[0]
+        Dp = trace.topology.padded_width(D)
+        ef = run.ring_dtype == "bf16"
+        s = (flatten.tree_to_flat(opt_state[spec.state_keys[0]]).clone()
+             if spec.state_keys and spec.kernel_supported else None)
+        res = tree = None
+        if impl != "stock":
+            # one flat (K, width) ring in the ring dtype: the shard rows
+            # side by side when sharded (width S·Dp ≥ D; the padding zeros
+            # are inert)
+            width = D if S == 1 else S * Dp
+            flat_pad = flatten.pad_flat(flat0, width)
+            q0 = flat_pad.to(torch.bfloat16 if ef else torch.float32)
+            ring = q0[None].expand(K, width).contiguous()
+            res = (flat_pad - q0.to(torch.float32)) if ef else None
+            if s is not None:
+                s = flatten.pad_flat(s, width)
+            del flat_pad, q0
+        elif S > 1:
+            # the stock sharded body: per-shard (K, Dp) rings stacked
+            # (S, K, Dp)
+            ring = flatten.shard_pack(flat0, S, Dp)[:, None, :].expand(
+                S, K, Dp).contiguous()
+            if s is not None:
+                s = flatten.shard_pack(s, S, Dp)
+        else:
+            ring = flat0[None].expand(K, D).contiguous()
+            if not spec.kernel_supported:
+                tree = [params0, opt_state]     # adamw: the pytree carry
+        if tree is None:
+            del params0, opt_state
+        del flat0
 
-    xs = _trace_xs(trace, K, dev, None if whatif else batch_fn,
-                   None if whatif else batches)
-    static_coef = torch.full((c,), 1.0 / c, dtype=torch.float32, device=dev)
-    if whatif:
-        a, wstar = flat_grad[1].to(dev), flat_grad[2].to(dev)
-    shard_ids = torch.arange(S, device=dev)
-    # [prev, slot] as (1,) int64 index tensors for index_select/index_copy_
-    pos = xs["idx"][:, :2].to(torch.int64)
+        xs = _trace_xs(trace, K, dev, None if whatif else batch_fn,
+                       None if whatif else batches)
+        static_coef = torch.full((c,), 1.0 / c, dtype=torch.float32,
+                                 device=dev)
+        if whatif:
+            a, wstar = flat_grad[1].to(dev), flat_grad[2].to(dev)
+        shard_ids = torch.arange(S, device=dev)
+        # [prev, slot] as (1,) int64 index tensors for index_select and
+        # index_copy_
+        pos = xs["idx"][:, :2].to(torch.int64)
 
     def pulled_weights(j: int) -> torch.Tensor:
         """The (c, D) fp32 weights event j's slots computed against."""
@@ -504,22 +509,27 @@ def replay(trace: ArrivalTrace, run: RunConfig, *,
 
     history = []
     seg = eval_every if (eval_fn and eval_every) else steps
-    for lo in range(0, steps, max(seg, 1)):
-        hi = min(lo + seg, steps)
-        for j in range(lo, hi):
-            event(j)
-            if snaps is not None:
-                snaps.index_copy_(0, pub[j:j + 1], row_of(pos[j, 1:2])[None])
-        if eval_fn and eval_every and hi % eval_every == 0:
-            history.append({"update": hi,
-                            "time": float(trace.event_time[hi - 1]),
-                            **eval_fn(params_of(hi))})
-    serve_result = None
-    if snaps is not None:
-        serve_result = _serve_eval(snaps, layout, serving, serve_batches,
-                                   serve_eval_fn)
+    with obs.span("events"):
+        for lo in range(0, steps, max(seg, 1)):
+            hi = min(lo + seg, steps)
+            for j in range(lo, hi):
+                event(j)
+                if snaps is not None:
+                    snaps.index_copy_(0, pub[j:j + 1],
+                                      row_of(pos[j, 1:2])[None])
+            if eval_fn and eval_every and hi % eval_every == 0:
+                history.append({"update": hi,
+                                "time": float(trace.event_time[hi - 1]),
+                                **eval_fn(params_of(hi))})
+        obs.count("events", steps)
+    with obs.span("result"):
+        serve_result = None
+        if snaps is not None:
+            serve_result = _serve_eval(snaps, layout, serving, serve_batches,
+                                       serve_eval_fn)
+        params = params_of(steps)
     return SimResult(trace.clock_log(), steps, trace.simulated_time,
-                     trace.minibatches, params_of(steps), history,
+                     trace.minibatches, params, history,
                      serving=serve_result)
 
 

@@ -41,6 +41,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.config import (CALIBRATED_PREFIX, DURATION_MODELS, RunConfig,
                           parse_calibrated)
 from repro_torch.core.clock import VectorClockLog, staleness_matrix
@@ -359,38 +360,44 @@ def schedule(run: RunConfig, steps: int,
     returns a mask-free trace (pinned bitwise by ``tests/test_elastic.py``).
     ``run.backup`` = b (hardsync) commits the first P − b arrivals per
     round and cancels the rest (Chen et al. backup learners).
+
+    The pass is the ``schedule`` span (``obs``); the queue counts its heap
+    pops as ``arrivals``.
     """
-    lam = run.n_learners
-    topo = Topology.from_run(run)
-    members = topo.members(lam)            # (P, gs) learner ids
-    pushers, gs = members.shape
-    rng = np.random.default_rng(run.seed)
-    sampler = as_learner_sampler(duration_sampler or
-                                 make_duration_sampler(run))
-    mu = run.minibatch
-    cur = _MembershipCursor(run.membership, lam)
+    with obs.span("schedule"):
+        lam = run.n_learners
+        topo = Topology.from_run(run)
+        members = topo.members(lam)            # (P, gs) learner ids
+        pushers, gs = members.shape
+        rng = np.random.default_rng(run.seed)
+        sampler = as_learner_sampler(duration_sampler or
+                                     make_duration_sampler(run))
+        mu = run.minibatch
+        cur = _MembershipCursor(run.membership, lam)
 
-    def draw_duration(p: int, mask: np.ndarray) -> float:
-        # group-local barrier over the members present at dispatch: gs
-        # member draws in member order, max of their durations (full
-        # membership + gs = 1 ⇒ one draw, the legacy per-learner schedule)
-        return max(sampler(rng, mu, int(m))
-                   for m, on in zip(members[p], mask) if on)
+        def draw_duration(p: int, mask: np.ndarray) -> float:
+            # group-local barrier over the members present at dispatch: gs
+            # member draws in member order, max of their durations (full
+            # membership + gs = 1 ⇒ one draw, the legacy per-learner
+            # schedule)
+            return max(sampler(rng, mu, int(m))
+                       for m, on in zip(members[p], mask) if on)
 
-    if run.protocol == "hardsync":
-        trace = _schedule_hardsync(run, steps, topo, members, cur,
-                                   draw_duration)
-    else:
-        trace = _schedule_queue(run, steps, topo, members, cur,
-                                draw_duration)
-    if run.serving is not None:
-        # serving lane (DESIGN.md §14): resolved AFTER the arrival schedule
-        # from its own rng stream, so attaching a fleet never perturbs the
-        # trace — arrivals with/without serving are bitwise identical
-        from repro_torch.serve.publication import schedule_serving
-        trace = dataclasses.replace(
-            trace, serving=schedule_serving(trace, run.serving, run.seed))
-    return trace
+        if run.protocol == "hardsync":
+            trace = _schedule_hardsync(run, steps, topo, members, cur,
+                                       draw_duration)
+        else:
+            trace = _schedule_queue(run, steps, topo, members, cur,
+                                    draw_duration)
+        if run.serving is not None:
+            # serving lane (DESIGN.md §14): resolved AFTER the arrival
+            # schedule from its own rng stream, so attaching a fleet never
+            # perturbs the trace — arrivals with/without serving are bitwise
+            # identical
+            from repro_torch.serve.publication import schedule_serving
+            trace = dataclasses.replace(
+                trace, serving=schedule_serving(trace, run.serving, run.seed))
+        return trace
 
 
 # RunConfig fields the schedule pass NEVER reads — replay/runtime knobs
@@ -702,6 +709,7 @@ def _schedule_queue(run: RunConfig, steps: int, topo: Topology,
             dispatch(p, t, mb + pushers)
         else:
             in_flight[p] = None            # left/crashed: stops pushing
+    obs.count("arrivals", eid_next - len(heap))     # every push, popped
 
     # unfilled slots carry benign placeholders: σ = 0 weights (the row's
     # own timestamp), learner 0's minibatch 0, and — through event_coef —

@@ -23,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.config import RunConfig
 from repro_torch.core.engine import replay, replay_batch, resolve_device
 from repro_torch.core.simulator import SimResult, simulate
@@ -243,18 +244,24 @@ class _Job:
             return _result(self.spec, self.trace, None, None,
                            replay_path="measure")
         dev = resolve_device(dev)
-        init_params = self.problem.init(dev) if init is None else init
         if self.engine == "legacy":
             sim = simulate(self.spec.run, steps=self.steps,
                            grad_fn=per_arrival_grad(self.problem.grad_fn),
-                           init_params=init_params, batch_fn=self.batch_fn,
+                           init_params=(self.problem.init(dev) if init is None
+                                        else init),
+                           batch_fn=self.batch_fn,
                            eval_fn=self.problem.eval_fn,
                            eval_every=self.spec.eval_every,
                            duration_sampler=self.spec.duration_sampler(),
                            device=dev)
             return _result(self.spec, self.trace, sim, self.problem,
                            replay_path="legacy")
-        staged = self.staged_batches()
+        with obs.span("problem"):
+            init_params = self.problem.init(dev) if init is None else init
+            staged = self.staged_batches()
+            flat_grad = getattr(self.problem, "flat_grad", None)
+            if flat_grad is not None:
+                flat_grad = flat_grad(dev)
         serve_kw = {}
         if self.trace.serving is not None:
             stage_requests = getattr(self.problem, "stage_requests", None)
@@ -272,7 +279,6 @@ class _Job:
                                                 seed=self.spec.run.seed),
                 "serve_eval_fn": request_metric,
             }
-        flat_grad = getattr(self.problem, "flat_grad", None)
         sim = replay(self.trace, self.spec.run,
                      grad_fn=self.problem.grad_fn,
                      init_params=init_params,
@@ -280,10 +286,10 @@ class _Job:
                      batches=staged,
                      eval_fn=self.problem.eval_fn,
                      eval_every=self.spec.eval_every,
-                     flat_grad=None if flat_grad is None else flat_grad(dev),
-                     device=dev, **serve_kw)
-        return _result(self.spec, self.trace, sim, self.problem,
-                       replay_path="sequential")
+                     flat_grad=flat_grad, device=dev, **serve_kw)
+        with obs.span("result"):
+            return _result(self.spec, self.trace, sim, self.problem,
+                           replay_path="sequential")
 
 
 def run(spec: ExperimentSpec, *, device="cuda", init=None) -> RunResult:
@@ -291,8 +297,12 @@ def run(spec: ExperimentSpec, *, device="cuda", init=None) -> RunResult:
 
     ``init`` (a parameter dict, e.g. the reference's initial weights
     carried across by ``experiments.carry.params_from_jax``) replaces the
-    problem's own initial draw for this run."""
-    return _Job(0, spec).run_single(device, init)
+    problem's own initial draw for this run.
+
+    The call is the ``run`` span (``obs``), its schedule included; inside
+    it lie ``schedule``, ``problem``, ``stage``, ``events`` and ``result``."""
+    with obs.span("run"):
+        return _Job(0, spec).run_single(device, init)
 
 
 def run_sweep(sweep: Union[Sweep, Sequence[ExperimentSpec]], *,
@@ -357,5 +367,6 @@ def run_sweep(sweep: Union[Sweep, Sequence[ExperimentSpec]], *,
 
     for job in jobs:
         if job.index not in done:
-            results[job.index] = job.run_single(device)
+            with obs.span("run"):
+                results[job.index] = job.run_single(device)
     return results

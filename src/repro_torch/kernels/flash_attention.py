@@ -58,6 +58,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -72,8 +73,9 @@ _PATHS = {torch.bfloat16: "sm90", torch.float32: "tf32x3"}
 _BLK_K = {"sm90": SM90_BLK_K, "tf32x3": TF32X3_BLK_K}
 
 # kernel launches since the last reset_launches(): both kernels, and each
-launches = {"flash_attention": 0}
-launches_by_path = {"sm90": 0, "tf32x3": 0}
+launches = obs.counter_group("launch", ("flash_attention",))
+launches_by_path = obs.counter_group("launch.flash_attention",
+                                     ("sm90", "tf32x3"))
 
 
 def reset_launches() -> None:

@@ -37,12 +37,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.optim import backends, flatten
 from repro_torch.optim.spec import UpdateSpec
 
 # kernel launches since the last reset_launches()
-launches = {"ps_apply": 0}
+launches = obs.counter_group("launch", ("ps_apply",))
 
 # coef and lrs are staged in the kernel's shared memory: the largest c
 MAX_SLOTS = build.MAX_SLOTS

@@ -39,16 +39,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.optim import backends
 from repro_torch.optim.spec import UpdateSpec
 
 # kernel launches per wrapper since the last reset_launches(), those of the
 # ranks an SPMD replay spawned from this process included
-launches = {"ring_apply": 0, "ring_apply_whatif": 0}
+launches = obs.counter_group("launch", ("ring_apply", "ring_apply_whatif"))
 # the lane events ring_apply's launches applied (one per launch and lane: B
 # for a replay_batch event)
-lane_events = {"ring_apply": 0}
+lane_events = obs.counter_group("lane_events", ("ring_apply",))
 # per rank, the launches of the last SPMD replay this process spawned
 rank_launches = []
 

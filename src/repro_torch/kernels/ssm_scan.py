@@ -55,6 +55,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 DEFAULT_CHUNK = 256
@@ -64,7 +65,7 @@ STATE_DIMS = (16, 32, 64, 128)   # N the kernel is built for
 _BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset_launches()
-launches = {"ssm_scan": 0}
+launches = obs.counter_group("launch", ("ssm_scan",))
 
 
 def reset_launches() -> None:

@@ -64,6 +64,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 DEFAULT_CHUNK = 32
@@ -74,7 +75,7 @@ FACTOR_SPAN = 60.0            # csrc/wkv6.cu: the factored pair term's limit
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset_launches()
-launches = {"wkv6": 0}
+launches = obs.counter_group("launch", ("wkv6",))
 
 
 def reset_launches() -> None:
