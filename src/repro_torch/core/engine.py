@@ -528,6 +528,7 @@ def replay(trace: ArrivalTrace, run: RunConfig, *,
             serve_result = _serve_eval(snaps, layout, serving, serve_batches,
                                        serve_eval_fn)
         params = params_of(steps)
+        replay_ring.collect_whatif_path()
     return SimResult(trace.clock_log(), steps, trace.simulated_time,
                      trace.minibatches, params, history,
                      serving=serve_result)
@@ -739,6 +740,7 @@ def _replay_spmd_rank(trace: ArrivalTrace, run: RunConfig, plan, *,
                                 "time": float(trace.event_time[hi - 1]),
                                 **eval_fn(params)})
     params = params_of(steps)
+    replay_ring.collect_whatif_path()
     if mesh.rank != 0:
         return None
     return SimResult(trace.clock_log(), steps, trace.simulated_time,
@@ -747,17 +749,23 @@ def _replay_spmd_rank(trace: ArrivalTrace, run: RunConfig, plan, *,
 
 def _spmd_rank_main(payload: dict):
     """Entry of a rank spawned by the SPMD replay: replay, and hand rank 0
-    the result (parameters on the host) and every rank's kernel launches."""
+    the result (parameters on the host), every rank's kernel launches and
+    its what-if launches by the kernel's variant."""
     import torch.distributed as dist
     dev = resolve_device(payload.pop("device"))
     before = dict(replay_ring.launches)
+    paths_before = dict(replay_ring.whatif_path)
     res = _replay_spmd_rank(dev=dev, **payload)
     mine = {k: n - before[k] for k, n in replay_ring.launches.items()}
+    my_paths = {k: n - paths_before[k]
+                for k, n in replay_ring.whatif_path.items()}
     counts = [None] * dist.get_world_size()
     dist.all_gather_object(counts, mine)
+    paths = [None] * dist.get_world_size()
+    dist.all_gather_object(paths, my_paths)
     if res is not None:
         res.params = tree_map(lambda t: t.cpu(), res.params)
-    return res, counts
+    return res, counts, paths
 
 
 def _replay_spmd(trace: ArrivalTrace, run: RunConfig, *, spec, grad_fn,
@@ -820,11 +828,14 @@ def _replay_spmd(trace: ArrivalTrace, run: RunConfig, *, spec, grad_fn,
         payload["flat_grad"] = (flat_grad[0],) + tuple(
             t.cpu() for t in flat_grad[1:])
     payload["device"] = str(device)
-    res, counts = mesh_lib.shard_map(_spmd_rank_main, plan.devices, payload)
+    res, counts, paths = mesh_lib.shard_map(_spmd_rank_main, plan.devices,
+                                            payload)
     # the ranks' launches count as this process's (per rank: rank_launches)
     replay_ring.rank_launches = counts
     for k in replay_ring.launches:
         replay_ring.launches[k] += sum(c[k] for c in counts)
+    for k in replay_ring.whatif_path:
+        replay_ring.whatif_path[k] += sum(p[k] for p in paths)
     # a rank's launch is one lane's event
     replay_ring.lane_events["ring_apply"] += sum(c["ring_apply"]
                                                  for c in counts)

@@ -36,21 +36,31 @@
 // trace pulls from few rows (K is the staleness bound + 1), and equal rows
 // give equal g_j, so the kernel:
 //   - builds, per block in shared memory (one thread, no host sync), the
-//     distinct pulled rows in order of first appearance and the runs of
-//     consecutive slots that pull the same row;
+//     distinct pulled rows in order of first appearance and the plan of
+//     the slot walk below;
 //   - per element, reads each distinct row once and forms t_k = a * (r_k -
 //     w*) once, in registers (up to WHATIF_ROWS rows);
-//   - walks the slots choosing t_k by a block-uniform branch once per run
-//     when runs are long (16 slots or more on average), else by a select
-//     per element (one for two rows, three for four; a branch per slot
-//     costs more in latency), so a slot costs acc + coef_j * t_k, a
-//     broadcast shared-memory load and at most that select, shared by the
-//     V elements a thread owns (V = 8: one 16-byte load of a bf16 row,
-//     two of an fp32 one, when D % 8 == 0 and every base is 16-byte
-//     aligned; V = 1 otherwise).
+//   - walks the slots in order choosing t_k by block-uniform control flow,
+//     never by a per-element select (three selects per slot and element
+//     for three or four rows cost more issue slots than the multiply and
+//     add they feed): the plan codes each group of 4 slots by its slots'
+//     rows, merges consecutive groups that pull one row into a stretch
+//     walked by one branch, and takes each mixed group by warp-uniform
+//     16-way switches into straight-line code with the rows fixed: one
+//     over its 4 slots when the event pulls at most 2 rows (1 bit a slot;
+//     2 rows held in registers), else one over each pair of slots (2 bits
+//     a slot; 4 rows held), the last c % 4 slots by a branch each.  So a
+//     slot costs acc + coef_j * t_k and a quarter of a broadcast 16-byte
+//     shared-memory load of the coefficients, shared by the V elements a
+//     thread owns (V = 8: one 16-byte load of a bf16 row, two of an fp32
+//     one, when D % 8 == 0 and every base is 16-byte aligned; V = 1
+//     otherwise), and a mixed group one or two switches.
 // An event with more than WHATIF_ROWS distinct rows forms g_j per slot
-// (whatif_slots), chosen inside the same launch.  Equal rows give bitwise
-// equal t_k, so both variants round exactly as the plain version does.
+// (whatif_slots), chosen inside the same launch; block 0 adds 1 to the
+// device tally's entry of the variant taken (the whatif_path counters).
+// Equal rows give bitwise equal t_k, and every slot adds
+// __fmul_rn(coef_j, t_k) in slot order 0..c-1, so both variants round
+// exactly as the plain version does.
 //
 // Numerics: the update math (update_event, the slot-order combine, the
 // sequential events) lives in update_event.cuh, shared with ps_update.cu, so
@@ -179,6 +189,16 @@ struct RingOp {
 // Distinct pulled rows whose t_k = a * (ring[row_k] - wstar) a thread holds
 // in registers; an event with more takes the per-slot variant.
 constexpr int WHATIF_ROWS = 4;
+// The walk's groups: slots GROUP*g .. GROUP*g+3.
+constexpr int GROUP = 4;
+// A step of the plan, (code, end group): a stretch of groups that all pull
+// one row (code: the row's index) or one mixed group (code: MIXED, each
+// slot's distinct-row index in 2 bits of bits 0-7 and its low bit in 1 bit
+// of bits 9-12, the first slot lowest).
+constexpr int MIXED = 1 << 8;
+constexpr int MASK_SHIFT = 9;
+// The device tally's entries: launches by the variant they took.
+enum { PATH_WALK = 0, PATH_SLOTS = 1 };
 
 // acc + coef * t, one multiply and one add per element
 template <int V>
@@ -188,55 +208,149 @@ __device__ __forceinline__ void add_slot(float* acc, const float* t,
   for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], __fmul_rn(cj, t[v]));
 }
 
-// The slots j0 .. j1-1 of one run, all pulled from the same row (t).
+// The groups g0 .. g1-1, every slot pulled from the same row (t): one
+// 16-byte shared load of four coefficients a group, 4 groups an iteration
+// (2.5 % faster than 2 on a one-row event, tools/whatif_probe.py).
 template <int V>
-__device__ __forceinline__ void add_run(float* acc, const float* t,
-                                        const float2* scm, int j0, int j1) {
+__device__ __forceinline__ void add_stretch(float* acc, const float* t,
+                                            const float4* sc4, int g0,
+                                            int g1) {
 #pragma unroll 4
-  for (int j = j0; j < j1; ++j) add_slot<V>(acc, t, scm[j].x);
-}
-
-// The slots 0 .. c-1, each picking its t_k by selects, no branch: one level
-// (rows 0, 1) or two (rows 0 .. 3).
-template <int V, int LEVELS>
-__device__ __forceinline__ void add_selected(float* acc,
-                                             const float (&t)[WHATIF_ROWS][V],
-                                             const float2* scm, int c) {
-#pragma unroll 4
-  for (int j = 0; j < c; ++j) {
-    const float2 cm = scm[j];   // (coef_j, distinct-row index as bits)
-    const int k = __float_as_int(cm.y);
-    float tk[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float lo = (k & 1) ? t[1][v] : t[0][v];
-      tk[v] = LEVELS == 1 ? lo : (k & 2) ? ((k & 1) ? t[3][v] : t[2][v]) : lo;
-    }
-    add_slot<V>(acc, tk, cm.x);
+  for (int g = g0; g < g1; ++g) {
+    const float4 cf = sc4[g];
+    add_slot<V>(acc, t, cf.x);
+    add_slot<V>(acc, t, cf.y);
+    add_slot<V>(acc, t, cf.z);
+    add_slot<V>(acc, t, cf.w);
   }
 }
 
+// A mixed group of an event with at most 2 rows: its 4 slots' rows are
+// the low 4 bits of m; one warp-uniform switch into straight-line code
+// with the rows fixed.
+template <int V>
+__device__ __forceinline__ void add_quad(float* acc, const float (&t)[2][V],
+                                         const float4& cf, int m) {
+  switch (m & 15) {
+#define QUAD(q)                                   \
+  case q:                                         \
+    add_slot<V>(acc, t[(q) & 1], cf.x);           \
+    add_slot<V>(acc, t[(q) >> 1 & 1], cf.y);      \
+    add_slot<V>(acc, t[(q) >> 2 & 1], cf.z);      \
+    add_slot<V>(acc, t[(q) >> 3 & 1], cf.w);      \
+    break;
+    QUAD(0) QUAD(1) QUAD(2) QUAD(3) QUAD(4) QUAD(5) QUAD(6) QUAD(7)
+    QUAD(8) QUAD(9) QUAD(10) QUAD(11) QUAD(12) QUAD(13) QUAD(14) QUAD(15)
+#undef QUAD
+  }
+}
+
+// Two slots of an event with 3 or 4 rows, their rows in the low 4 bits of
+// p (2 bits a slot): one warp-uniform switch as add_quad's.
+template <int V>
+__device__ __forceinline__ void add_pair(float* acc, const float (&t)[4][V],
+                                         float c0, float c1, int p) {
+  switch (p & 15) {
+#define PAIR(k0, k1)                      \
+  case (k0) | (k1) << 2:                  \
+    add_slot<V>(acc, t[k0], c0);          \
+    add_slot<V>(acc, t[k1], c1);          \
+    break;
+    PAIR(0, 0) PAIR(1, 0) PAIR(2, 0) PAIR(3, 0)
+    PAIR(0, 1) PAIR(1, 1) PAIR(2, 1) PAIR(3, 1)
+    PAIR(0, 2) PAIR(1, 2) PAIR(2, 2) PAIR(3, 2)
+    PAIR(0, 3) PAIR(1, 3) PAIR(2, 3) PAIR(3, 3)
+#undef PAIR
+  }
+}
+
+// The groups g0 .. g1-1, a stretch of row k: one block-uniform branch to
+// the row (each t[k] in registers, so every index is a constant).
+template <int R, int V>
+__device__ __forceinline__ void add_stretch_of(float* acc,
+                                               const float (&t)[R][V],
+                                               const float4* sc4, int g0,
+                                               int g1, int k) {
+  if (k == 0) {
+    add_stretch<V>(acc, t[0], sc4, g0, g1);
+  } else if (R == 2 || k == 1) {
+    add_stretch<V>(acc, t[1], sc4, g0, g1);
+  } else if constexpr (R == 4) {
+    if (k == 2) add_stretch<V>(acc, t[2], sc4, g0, g1);
+    else add_stretch<V>(acc, t[3], sc4, g0, g1);
+  }
+}
+
+// One slot of row k, as add_stretch_of.
+template <int R, int V>
+__device__ __forceinline__ void add_one(float* acc, const float (&t)[R][V],
+                                        float cj, int k) {
+  if (k == 0) {
+    add_slot<V>(acc, t[0], cj);
+  } else if (R == 2 || k == 1) {
+    add_slot<V>(acc, t[1], cj);
+  } else if constexpr (R == 4) {
+    if (k == 2) add_slot<V>(acc, t[2], cj);
+    else add_slot<V>(acc, t[3], cj);
+  }
+}
+
+// The slots 0 .. c-1 in order, each t_k chosen by block-uniform control
+// flow from the block's plan, never by a per-element select: a stretch of
+// groups of one row by one branch, a mixed group by one switch over its 4
+// slots (R = 2 rows held) or two over its pairs (R = 4), the last
+// c % GROUP slots by a branch each.
+template <int R, int V>
+__device__ __forceinline__ void walk(float* acc, const float (&t)[R][V],
+                                     const float* sc, const int2* steps,
+                                     int nsteps, int tail, int c) {
+  const float4* sc4 = reinterpret_cast<const float4*>(sc);
+  int g = 0;
+  for (int u = 0; u < nsteps; ++u) {
+    const int2 st = steps[u];
+    if (st.x & MIXED) {
+      const float4 cf = sc4[g];
+      if constexpr (R == 2) {
+        add_quad<V>(acc, t, cf, st.x >> MASK_SHIFT);
+      } else {
+        float c0 = cf.x, c1 = cf.y;
+        int p = st.x;
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {   // one copy of the switch, run twice
+          add_pair<V>(acc, t, c0, c1, p);
+          c0 = cf.z;
+          c1 = cf.w;
+          p >>= 4;
+        }
+      }
+    } else {
+      add_stretch_of<R, V>(acc, t, sc4, g, st.y, st.x);
+    }
+    g = st.y;
+  }
+#pragma unroll 1
+  for (int j = GROUP * g; j < c; ++j, tail >>= 2)
+    add_one<R, V>(acc, t, sc[j], tail & 3);
+}
+
 // Variant 1 (at most WHATIF_ROWS distinct rows): each distinct row read once
-// per element and t_k formed once.  When runs of equal rows are long (16
-// slots or more on average) the slot loop walks the runs, picking t_k by a
-// block-uniform branch once per run; otherwise by selects per slot and
-// element, since a branch per slot or per pair of slots costs more in
-// latency than a select (1 per element for two rows, 3 for four).
-template <typename T, int V>
+// per element and t_k formed once, in registers (R of them: 2 when the
+// event pulls at most 2 rows, else 4), then the slot walk.
+template <typename T, int R, int V>
 __device__ __forceinline__ void whatif_rows(const T* ring, const float* a,
                                             const float* wstar, int64_t e,
                                             const int64_t* roff, int nd,
-                                            const float2* scm,
-                                            const int2* runs, int nruns,
-                                            int c, float* acc) {
-  static_assert(WHATIF_ROWS == 4, "the selections below pick 1 of 4 rows");
-  float t[WHATIF_ROWS][V];
+                                            const float* sc,
+                                            const int2* steps, int nsteps,
+                                            int tail, int c, float* acc) {
+  static_assert(R == 2 || R == WHATIF_ROWS, "the walk holds 2 or 4 rows");
+  float t[R][V];
   {
     float av[V], wv[V];
     ld<V>(a + e, av);
     ld<V>(wstar + e, wv);
 #pragma unroll
-    for (int k = 0; k < WHATIF_ROWS; ++k) {
+    for (int k = 0; k < R; ++k) {
       if (k < nd) {
         float r[V];
         ld<V>(ring + roff[k] + e, r);
@@ -251,24 +365,7 @@ __device__ __forceinline__ void whatif_rows(const T* ring, const float* a,
   }
 #pragma unroll
   for (int v = 0; v < V; ++v) acc[v] = 0.f;
-  if (16 * nruns <= c) {
-    int j = 0;
-    for (int u = 0; u < nruns; ++u) {
-      const int2 run = runs[u];   // (distinct-row index, end slot)
-      if (run.x < 2) {
-        if (run.x == 0) add_run<V>(acc, t[0], scm, j, run.y);
-        else add_run<V>(acc, t[1], scm, j, run.y);
-      } else {
-        if (run.x == 2) add_run<V>(acc, t[2], scm, j, run.y);
-        else add_run<V>(acc, t[3], scm, j, run.y);
-      }
-      j = run.y;
-    }
-  } else if (nd <= 2) {
-    add_selected<V, 1>(acc, t, scm, c);
-  } else {
-    add_selected<V, 2>(acc, t, scm, c);
-  }
+  walk<R, V>(acc, t, sc, steps, nsteps, tail, c);
 }
 
 // Variant 2 (more distinct rows): every slot re-reads its row (from L1/L2
@@ -276,7 +373,7 @@ __device__ __forceinline__ void whatif_rows(const T* ring, const float* a,
 template <typename T, int V>
 __device__ __forceinline__ void whatif_slots(const T* ring, const float* a,
                                              const float* wstar, int64_t D,
-                                             int64_t e, const float2* scm,
+                                             int64_t e, const float* sc,
                                              const int32_t* sts, int c,
                                              float* acc) {
   float av[V], wv[V];
@@ -288,7 +385,7 @@ __device__ __forceinline__ void whatif_slots(const T* ring, const float* a,
   for (int j = 0; j < c; ++j) {
     float r[V];
     ld<V>(ring + (int64_t)sts[j] * D + e, r);
-    const float cj = scm[j].x;
+    const float cj = sc[j];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const float gj = __fmul_rn(av[v], __fsub_rn(r[v], wv[v]));  // a*(r-w*)
@@ -297,7 +394,14 @@ __device__ __forceinline__ void whatif_slots(const T* ring, const float* a,
   }
 }
 
-// shared memory: (coef, row index)[c] as float2, runs[c] as int2, ts[c]
+// Shared memory of a launch with c slots: coef[c] padded to whole groups,
+// the plan's steps (at most one a group) and the pulled rows ts[c].
+inline size_t whatif_smem(int c) {
+  const size_t groups = (c + GROUP - 1) / GROUP;
+  return groups * sizeof(float4) + groups * sizeof(int2) +
+         (size_t)c * sizeof(int32_t);
+}
+
 template <typename T, int OPT, bool EF, int V>
 __global__ void __launch_bounds__(THREADS)
 ring_apply_whatif_kernel(T* ring, float* s, float* res,
@@ -306,23 +410,24 @@ ring_apply_whatif_kernel(T* ring, float* s, float* res,
                          const float* __restrict__ coef,
                          const float* __restrict__ lrs,
                          const int32_t* __restrict__ idx, int64_t D, int c,
-                         float m, float eps) {
-  extern __shared__ float2 smem2[];
-  float2* scm = smem2;                                 // (coef_j, map_j)
-  int2* runs = reinterpret_cast<int2*>(smem2 + c);     // (map, end) per run
-  int32_t* sts = reinterpret_cast<int32_t*>(runs + c);
+                         float m, float eps, int* tally) {
+  extern __shared__ float4 smem4[];
+  const int groups = (c + GROUP - 1) / GROUP;
+  float* sc = reinterpret_cast<float*>(smem4);               // coef_j
+  int2* steps = reinterpret_cast<int2*>(smem4 + groups);     // the plan
+  int32_t* sts = reinterpret_cast<int32_t*>(steps + groups); // ts_j
   __shared__ int32_t rows[WHATIF_ROWS];
-  __shared__ int n_rows, n_runs;
+  __shared__ int n_rows, n_steps, tail_code;
   for (int j = threadIdx.x; j < c; j += blockDim.x) {
-    scm[j].x = coef[j];
+    sc[j] = coef[j];
     sts[j] = idx[2 + j];
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    // the distinct rows in order of first appearance, each slot's index
-    // among them, and the runs of consecutive slots that pull the same row;
-    // stop past WHATIF_ROWS rows
-    int nd = 0, nr = 0;
+    // the distinct rows in order of first appearance and the plan: each
+    // group's slots coded by their rows' indices, a run of groups that all
+    // pull one row merged into one stretch; stop past WHATIF_ROWS rows
+    int nd = 0, ns = 0, code = 0, mask = 0;
     for (int j = 0; j < c; ++j) {
       const int r = sts[j];
       int k = 0;
@@ -331,18 +436,27 @@ ring_apply_whatif_kernel(T* ring, float* s, float* res,
         if (nd == WHATIF_ROWS) { ++nd; break; }
         rows[nd++] = r;
       }
-      scm[j].y = __int_as_float(k);
-      if (nr > 0 && runs[nr - 1].x == k) {
-        runs[nr - 1].y = j + 1;
-      } else {
-        runs[nr++] = make_int2(k, j + 1);
+      code |= k << 2 * (j % GROUP);
+      mask |= (k & 1) << (j % GROUP);
+      if (j % GROUP == GROUP - 1) {
+        const int end = j / GROUP + 1;
+        if (code != k * 0x55)   // not k in all four fields: mixed
+          steps[ns++] = make_int2(MIXED | mask << MASK_SHIFT | code, end);
+        else if (ns > 0 && steps[ns - 1].x == k)
+          steps[ns - 1].y = end;
+        else
+          steps[ns++] = make_int2(k, end);
+        code = mask = 0;
       }
     }
     n_rows = nd;
-    n_runs = nr;
+    n_steps = ns;
+    tail_code = code;
+    if (blockIdx.x == 0)
+      atomicAdd(tally + (nd <= WHATIF_ROWS ? PATH_WALK : PATH_SLOTS), 1);
   }
   __syncthreads();
-  const int nd = n_rows, nruns = n_runs;
+  const int nd = n_rows, nsteps = n_steps, tail = tail_code;
   int64_t roff[WHATIF_ROWS];
 #pragma unroll
   for (int k = 0; k < WHATIF_ROWS; ++k)
@@ -355,11 +469,14 @@ ring_apply_whatif_kernel(T* ring, float* s, float* res,
        e < D; e += stride) {
     float w[V], sv[V], acc[V];
     load_event<T, OPT, EF, V>(src, s, res, e, w, sv);
-    if (nd <= WHATIF_ROWS)
-      whatif_rows<T, V>(ring, a, wstar, e, roff, nd, scm, runs, nruns, c,
-                        acc);
+    if (nd <= 2)
+      whatif_rows<T, 2, V>(ring, a, wstar, e, roff, nd, sc, steps, nsteps,
+                           tail, c, acc);
+    else if (nd <= WHATIF_ROWS)
+      whatif_rows<T, WHATIF_ROWS, V>(ring, a, wstar, e, roff, nd, sc, steps,
+                                     nsteps, tail, c, acc);
     else
-      whatif_slots<T, V>(ring, a, wstar, D, e, scm, sts, c, acc);
+      whatif_slots<T, V>(ring, a, wstar, D, e, sc, sts, c, acc);
 #pragma unroll
     for (int v = 0; v < V; ++v) update_event<OPT>(w[v], sv[v], acc[v], lr, m, eps);
     store_event<T, OPT, EF, V>(dst, s, res, e, w, sv);
@@ -370,14 +487,14 @@ template <typename T, int OPT, bool EF, int V>
 void launch_whatif(void* ring, void* s, void* res, const void* a,
                    const void* wstar, const void* coef, const void* lrs,
                    const void* idx, int64_t D, int c, float m, float eps,
-                   cudaStream_t st) {
+                   void* tally, cudaStream_t st) {
   ring_apply_whatif_kernel<T, OPT, EF, V>
-      <<<blocks_for(D, V), THREADS, 5 * c * sizeof(float), st>>>(
+      <<<blocks_for(D, V), THREADS, whatif_smem(c), st>>>(
           static_cast<T*>(ring), static_cast<float*>(s),
           static_cast<float*>(res), static_cast<const float*>(a),
           static_cast<const float*>(wstar), static_cast<const float*>(coef),
           static_cast<const float*>(lrs), static_cast<const int32_t*>(idx), D,
-          c, m, eps);
+          c, m, eps, static_cast<int*>(tally));
 }
 
 // runtime flags -> template instantiation
@@ -410,13 +527,13 @@ template <typename T, int OPT>
 void whatif_mode(int ef, int vec8, void* ring, void* s, void* res,
                  const void* a, const void* wstar, const void* coef,
                  const void* lrs, const void* idx, int64_t D, int c, float m,
-                 float eps, cudaStream_t st) {
+                 float eps, void* tally, cudaStream_t st) {
   if (ef) {
-    if (vec8) launch_whatif<T, OPT, true, 8>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, st);
-    else launch_whatif<T, OPT, true, 1>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, st);
+    if (vec8) launch_whatif<T, OPT, true, 8>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, tally, st);
+    else launch_whatif<T, OPT, true, 1>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, tally, st);
   } else {
-    if (vec8) launch_whatif<T, OPT, false, 8>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, st);
-    else launch_whatif<T, OPT, false, 1>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, st);
+    if (vec8) launch_whatif<T, OPT, false, 8>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, tally, st);
+    else launch_whatif<T, OPT, false, 1>(ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, tally, st);
   }
 }
 
@@ -424,13 +541,13 @@ template <typename T>
 void whatif_opt(int opt, int ef, int vec8, void* ring, void* s, void* res,
                 const void* a, const void* wstar, const void* coef,
                 const void* lrs, const void* idx, int64_t D, int c, float m,
-                float eps, cudaStream_t st) {
+                float eps, void* tally, cudaStream_t st) {
   if (opt == OPT_SGD)
-    whatif_mode<T, OPT_SGD>(ef, vec8, ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, st);
+    whatif_mode<T, OPT_SGD>(ef, vec8, ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, tally, st);
   else if (opt == OPT_MOMENTUM)
-    whatif_mode<T, OPT_MOMENTUM>(ef, vec8, ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, st);
+    whatif_mode<T, OPT_MOMENTUM>(ef, vec8, ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, tally, st);
   else
-    whatif_mode<T, OPT_ADAGRAD>(ef, vec8, ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, st);
+    whatif_mode<T, OPT_ADAGRAD>(ef, vec8, ring, s, res, a, wstar, coef, lrs, idx, D, c, m, eps, tally, st);
 }
 
 }  // namespace
@@ -465,15 +582,17 @@ extern "C" int ring_apply_whatif(void* ring, int ring_bf16, void* s,
                                  const void* coef, const void* lrs,
                                  const void* idx, long long D, int c, int opt,
                                  float momentum, float eps, int vec8,
-                                 void* stream) {
+                                 void* tally, void* stream) {
+  // tally: (2,) int32 on the device, [walk, slots]; block 0 adds 1 to the
+  // entry of the variant the launch took
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ef = res != nullptr;
   if (ring_bf16)
     whatif_opt<__nv_bfloat16>(opt, ef, vec8, ring, s, res, a, wstar, coef,
-                              lrs, idx, D, c, momentum, eps, st);
+                              lrs, idx, D, c, momentum, eps, tally, st);
   else
     whatif_opt<float>(opt, ef, vec8, ring, s, res, a, wstar, coef, lrs, idx,
-                      D, c, momentum, eps, st);
+                      D, c, momentum, eps, tally, st);
   return (int)cudaGetLastError();
 }
 

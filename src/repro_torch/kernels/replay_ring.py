@@ -28,14 +28,16 @@ falls back: a CUDA call launches or raises.  ``launches`` counts kernel
 launches per wrapper (plain-version calls do not count), so a run can show
 that its events really went through the kernels; ``lane_events`` counts
 the lane events ``ring_apply``'s launches applied (B per lane-axis
-launch).
+launch); ``whatif_path`` counts ``ring_apply_whatif``'s launches by the
+variant the kernel itself chose, once :func:`collect_whatif_path` has read
+the kernel's device tally.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,6 +54,13 @@ launches = obs.counter_group("launch", ("ring_apply", "ring_apply_whatif"))
 lane_events = obs.counter_group("lane_events", ("ring_apply",))
 # per rank, the launches of the last SPMD replay this process spawned
 rank_launches = []
+# ring_apply_whatif's launches by the variant the kernel chose: ``walk``
+# (at most WHATIF_ROWS distinct pulled rows, held in registers) or
+# ``slots`` (more).  Block 0 of each launch adds 1 to a device tally;
+# collect_whatif_path() adds the tallies in here.
+whatif_path = obs.counter_group("whatif_path", ("walk", "slots"))
+# device index -> its (2,) int32 tally [walk, slots]
+_path_tallies: Dict[int, torch.Tensor] = {}
 
 _RING_DTYPES = (torch.float32, torch.bfloat16)
 # distinct pulled rows the what-if kernel holds in registers
@@ -64,9 +73,30 @@ Ring3 = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
 def reset_launches() -> None:
-    for counter in (launches, lane_events):
+    for counter in (launches, lane_events, whatif_path):
         for name in counter:
             counter[name] = 0
+    for tally in _path_tallies.values():
+        tally.zero_()
+
+
+def _path_tally(device: torch.device) -> torch.Tensor:
+    tally = _path_tallies.get(device.index)
+    if tally is None:
+        tally = torch.zeros(2, dtype=torch.int32, device=device)
+        _path_tallies[device.index] = tally
+    return tally
+
+
+def collect_whatif_path() -> None:
+    """Add the kernel's device tallies into ``whatif_path`` and zero them.
+    Reading a tally waits for the launches queued before it."""
+    for tally in _path_tallies.values():
+        walk, slots = tally.tolist()
+        if walk or slots:
+            whatif_path["walk"] += walk
+            whatif_path["slots"] += slots
+            tally.zero_()
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,7 +109,7 @@ def _library() -> ctypes.CDLL:
                                i, i, i, i, i, i, f, f, i, p]
     lib.ring_apply.restype = i
     lib.ring_apply_whatif.argtypes = [p, i, p, p, p, p, p, p, p,
-                                      ctypes.c_longlong, i, i, f, f, i, p]
+                                      ctypes.c_longlong, i, i, f, f, i, p, p]
     lib.ring_apply_whatif.restype = i
     lib.ring_apply_whatif_rows.restype = i
     if lib.ring_apply_whatif_rows() != WHATIF_ROWS:
@@ -198,6 +228,7 @@ def ring_apply_whatif(ring: torch.Tensor, s: Optional[torch.Tensor],
         lrs.data_ptr(), idx.data_ptr(), D, c,
         build.OPT_CODES[spec.optimizer], spec.momentum, spec.eps,
         build.vec8(D, ring, s, res, a, wstar),
+        _path_tally(ring.device).data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     build.raise_on(lib, "replay_ring", err, "ring_apply_whatif")
     launches["ring_apply_whatif"] += 1

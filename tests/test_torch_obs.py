@@ -9,6 +9,8 @@
 * A ``schedule_cached`` hit records no ``schedule`` span.
 * Counters only grow; ``reset_launches()`` zeroes the launch groups, which
   are the registry's own dicts.
+* The what-if kernel's ``whatif_path`` group is registered, and the CPU's
+  plain version leaves it untouched.
 """
 
 import json
@@ -127,6 +129,21 @@ def test_records_clear_when_a_new_run_starts():
     assert {r["run"] for r in second} == {second[-1]["id"]}
 
 
+def test_whatif_path_counters_registered_and_untouched_on_cpu():
+    """The what-if kernel's variant counters are the registry's; the CPU's
+    plain version launches nothing, so a replay there (and the engine's
+    read of the device tallies in its ``result`` span) leaves them as they
+    were."""
+    names = ("whatif_path.walk", "whatif_path.slots")
+    assert set(replay_ring.whatif_path) == {"walk", "slots"}
+    before = obs.counters()
+    assert set(names) <= set(before)
+    _profiled(_spec(6, seed=107))
+    after = obs.counters()
+    assert [after[n] for n in names] == [before[n] for n in names]
+    assert not any(n in r["counts"] for r in obs.last_run() for n in names)
+
+
 def test_counters_grow_and_reset_zeroes_the_launch_groups():
     before = obs.counters()
     run(_spec(5, seed=106), device="cpu")
@@ -141,6 +158,8 @@ def test_counters_grow_and_reset_zeroes_the_launch_groups():
                                            "ring_apply_whatif"),
               "lane_events.ring_apply": (replay_ring.lane_events,
                                          "ring_apply"),
+              "whatif_path.walk": (replay_ring.whatif_path, "walk"),
+              "whatif_path.slots": (replay_ring.whatif_path, "slots"),
               "launch.ps_apply": (ps_update.launches, "ps_apply"),
               "launch.flash_attention": (flash_attention.launches,
                                          "flash_attention"),

@@ -428,10 +428,11 @@ WHATIF_CASES = [(3, 1, False), (3, 2, False),
 def test_ring_apply_whatif_distinct_rows_bitwise_on_card(
         opt, dtype, K, rows, prev_in_ts, width, long_runs, cuda):
     """64 slots pulling ``rows`` distinct rows in runs of 1 to 3 equal
-    slots (the kernel picks each slot's row by selects) or in max(rows, 4)
-    runs of 16 or so (by a branch per run), the slot row never among them
-    unless K = 1.  ``width`` D is a multiple of 8 (the kernel's 8-wide
-    path) or ragged (1-wide)."""
+    slots (groups of 4 slots that mostly mix rows: the kernel's walk takes
+    them pair by pair, by a switch on each pair's rows) or in max(rows, 4)
+    runs of 16 or so (stretches of groups of one row, a branch each), the
+    slot row never among them unless K = 1.  ``width`` D is a multiple of
+    8 (the kernel's 8-wide path) or ragged (1-wide)."""
     rng = np.random.default_rng(4 + rows)
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     c = 64
@@ -473,3 +474,98 @@ def test_ring_apply_whatif_distinct_rows_bitwise_on_card(
     assert replay_ring.launches["ring_apply_whatif"] == 1
     for x, y in zip(kern, plain):
         assert (x is None and y is None) or torch.equal(x, y)
+
+
+def _bench_pulls(runs: int, c: int, rng) -> list:
+    """The replay benchmark's pattern as stalenesses: a head of runs of 1
+    to 3 slots alternating staleness 2 and 1 (from 2), a long middle of
+    staleness 1, a tail of runs of 1 to 3 slots alternating 0 and 1 (from
+    0); ``runs`` runs in all."""
+    head = (runs - 1) // 2
+    head -= 1 - head % 2                 # odd, so the head ends on 2
+    tail = runs - 1 - head
+    first = [(2 - i % 2, int(rng.integers(1, 4))) for i in range(head)]
+    last = [(i % 2, int(rng.integers(1, 4))) for i in range(tail)]
+    middle = c - sum(n for _, n in first + last)
+    seq = []
+    for st, n in first + [(1, middle)] + last:
+        seq += [st] * n
+    return seq
+
+
+# (pattern, runs or rows, c): the replay benchmark's 3 pulled rows in 5, 9
+# and 18 runs, and at c 127 (a tail of 3 slots past the last group of 4);
+# 2 and 4 rows alternating every slot (every group mixed), 4 at c 30 (a
+# tail of 2)
+WALK_CASES = [("bench", 5, 128), ("bench", 9, 128), ("bench", 18, 128),
+              ("bench", 9, 127), ("alternate", 2, 128),
+              ("alternate", 4, 128), ("alternate", 4, 30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [D, D + 3])
+@pytest.mark.parametrize("pattern,n,c", WALK_CASES)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("opt", OPTS)
+def test_ring_apply_whatif_walk_patterns_bitwise_on_card(
+        opt, dtype, pattern, n, c, width, cuda):
+    """The slot walk on the patterns it was designed for.  ``bench``: the
+    replay benchmark's event (K 3, event j: prev = j mod 3, slot = j + 1
+    mod 3, staleness s pulls row j − s mod 3, so the head's staleness-2
+    row is the slot row and the tail's staleness-0 row is prev).
+    ``alternate``: slot i pulls the (i mod n)-th of n rows, never the slot
+    row."""
+    rng = np.random.default_rng(40 + n + c)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def dev(x):
+        return torch.tensor(np.asarray(x, np.float32), device=cuda)
+    if pattern == "bench":
+        K, j = 3, 7
+        prev, slot = j % K, (j + 1) % K
+        ts = [(j - st) % K for st in _bench_pulls(n, c, rng)]
+        assert 1 + sum(a != b for a, b in zip(ts, ts[1:])) == n
+        assert len(set(ts)) == 3 and len(ts) == c
+    else:
+        K, prev, slot = n + 2, n, n + 1
+        ts = [i % n for i in range(c)]
+    ring = dev(rng.normal(size=(K, width))).to(tdt)
+    s = None if opt == "sgd" else dev(np.abs(rng.normal(size=width)))
+    res = dev(rng.normal(size=width) * 1e-3) if dtype == "bf16" else None
+    a, wstar = dev(rng.uniform(0.5, 1.5, width)), dev(rng.normal(size=width))
+    coef = dev(rng.uniform(0.5, 1.5, c) / c)
+    lrs = dev(rng.uniform(0.01, 0.1, c))
+    idx = torch.tensor([prev, slot, *ts], dtype=torch.int32, device=cuda)
+    spec = TSpec(opt)
+    clone = (lambda x: None if x is None else x.clone())
+    plain = t_whatif(spec, ring.clone(), clone(s), clone(res), a, wstar,
+                     idx[2:], coef, lrs, idx[0], idx[1])
+    replay_ring.reset_launches()
+    kern = replay_ring.ring_apply_whatif(ring, s, res, a, wstar, coef, lrs,
+                                         idx, spec=spec)
+    replay_ring.collect_whatif_path()
+    assert replay_ring.launches["ring_apply_whatif"] == 1
+    assert replay_ring.whatif_path == {"walk": 1, "slots": 0}
+    for x, y in zip(kern, plain):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_replay_traffic_pulls_three_rows_in_few_runs(seed):
+    """What the what-if kernel's slot walk is built for: the replay
+    benchmark's arrivals (1-softsync, λ 128, μ 1; ``schedule_seed`` 1 and
+    2) over 861 events, rows taken mod K as the engine wraps them, pull 3
+    distinct ring rows in at least 90 % of events (K is 3) and never in
+    more than 20 runs of equal rows."""
+    from repro_torch.config import RunConfig
+    from repro_torch.core import trace
+    run = RunConfig(protocol="softsync", n_softsync=1, n_learners=128,
+                    minibatch=1, seed=seed)
+    tr = trace.schedule(run, 861)
+    K = tr.max_staleness + 1
+    rows = tr.pulled_ts % K
+    assert K == 3 and rows.shape == (861, 128)
+    distinct = np.array([len(set(r)) for r in rows.tolist()])
+    runs = 1 + (rows[:, 1:] != rows[:, :-1]).sum(axis=1)
+    assert (distinct == 3).mean() >= 0.90
+    assert runs.max() <= 20
