@@ -124,7 +124,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    scratch, the operations its kernels do beside the bound's count, and
    its time also with every chunk's pair term in the direct form (the
    strong decay) and with half of them (the mixed decay).  Each
-   time with its achieved rates and its share of the bound.
+   time with its achieved rates and its share of the bound.  Rows 4″
+   and 5′ (``time_zamba2_instruct``): Zamba2-7B-Instruct's layer at the
+   ``zamba2_7b.prefill`` cell's shapes, the sm90 kernel at head 224 and
+   ``ssm_scan`` at 2 B / C groups, each held to its plain version and
+   timed, then one prefill of the published model with its launches
+   counted (13 sm90, 81 ``ssm_scan``); two more rows of the ``kernels``
+   line.
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
    ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
@@ -1969,6 +1975,117 @@ def wkv_details(ops, chunk, ms, dev):
                 for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
     del strong
     torch.cuda.empty_cache()
+
+
+def time_zamba2_instruct(dev):
+    """Rows 4″ and 5′: a layer of Zamba2-7B-Instruct
+    (``configs/zamba2_7b_instruct.py``) at the ``zamba2_7b.prefill`` cell's
+    shapes.  The sm90 kernel at head 224 (B 8, S 4 096, 32 heads, causal,
+    the model's scale (224/2)^-½) and ``ssm_scan`` with B / C in 2 groups
+    (B 8, S 4 096, 112 heads, P = N = 64, chunk 256, B / C bf16 column
+    slices of one tensor, as the model passes them), each held to its plain
+    version (``flash_check``, ``scan_check``) and timed beside it, the scan
+    also at G 1 on group 0's operands; bounds from
+    ``portbench/reference/prefill_cost.py``.  Then one prefill of the
+    published model at full width and depth (B 1, S 4 096, weights drawn on
+    the card) with the launch counters zeroed just before it: one sm90
+    launch per hybrid layer (13), one ``ssm_scan`` per layer (81).  Returns
+    the two rows of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+    from portbench.reference import prefill_cost as pc
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import zamba2_7b_instruct as zi
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as sk
+    from repro_torch.models import init_model
+    from repro_torch.serve.engine import prefill_step
+    pub = json.loads((ROOT / "portbench/configs/zamba2_7b.json").read_text())
+    cfg = zi.CONFIG
+    B, S, H, D, scale = 8, 4096, cfg.n_heads, cfg.d_head, cfg.attn_scale
+    q, k, v = flash_inputs(B, S, S, H, H, D, torch.bfloat16, 26, dev)
+    kb, vb = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+    def view(t):
+        return t.reshape(B, S, H, 1, D).permute(0, 2, 3, 1, 4)
+
+    def kern():
+        return fa.flash_attention(q, k, v, causal=True, scale=scale)
+
+    def plain():
+        return fa.flash_attention_bkgsd_plain(
+            view(q), kb, vb, causal=True, blk_q=128,
+            blk_k=fa.SM90_WIDE_BLK_K, scale=scale)
+
+    err, share = flash_check(view(kern()), plain(), vb,
+                             "flash_attention at head 224")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flash = {"ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 1, 0),
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, scale=scale), 5),
+             "bound_ms": pc.flash_least_s(pub, B, S) * 1e3,
+             "bound_by": "operations", "max_abs_err": err}
+    log(f"  flash_attention B={B} S={S} H={H} D={D} causal scale "
+        f"(D/2)^-1/2, bf16 sm90 wide kernel: {flash['ms']:.4f} ms (plain "
+        f"{flash['plain_ms']:.4f} ms; scaled_dot_product_attention "
+        f"{flash['library_ms']:.4f} ms; bound {flash['bound_ms']:.4f} ms, "
+        f"{flash['bound_ms'] / flash['ms']:.3f} of it); max |kernel - "
+        f"plain| {err} ({share:.4f} of the bf16 bound)")
+    del q, k, v, kb, vb, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    G, N, P, Q = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim, \
+        cfg.ssm_chunk
+    x, a, Bm, Cm = ssm_inputs(B, S, cfg.ssm_n_heads, P, G * N,
+                              torch.bfloat16, 27, dev)
+    Bm, Cm = Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
+    y, st = sk.ssm_scan(x, a, Bm, Cm, chunk=Q)
+    py, pst = sk.ssm_scan_plain(x, a, Bm, Cm, chunk=Q)
+    span = decay_span(a, Q)
+    err = max(scan_check(y, py, span, "ssm_scan at G 2")[0],
+              scan_check(st, pst, span, "ssm_scan's state at G 2")[0])
+    del y, st, py, pst
+    scan = {"ms": cuda_ms(lambda: sk.ssm_scan(x, a, Bm, Cm, chunk=Q), 5),
+            "plain_ms": cuda_ms(lambda: sk.ssm_scan_plain(
+                x, a, Bm, Cm, chunk=Q), 1, 0),
+            "library_ms": None,
+            "bound_ms": pc.ssm_scan_least_s(pub, B, S) * 1e3,
+            "bound_by": "operations", "max_abs_err": err}
+    g1_ms = cuda_ms(lambda: sk.ssm_scan(x, a, Bm[:, :, 0], Cm[:, :, 0],
+                                        chunk=Q), 5)
+    log(f"  ssm_scan B={B} S={S} H={cfg.ssm_n_heads} P={P} N={N} G={G} "
+        f"chunk={Q}: {scan['ms']:.4f} ms (G 1 on group 0's operands "
+        f"{g1_ms:.4f} ms; plain {scan['plain_ms']:.4f} ms; bound "
+        f"{scan['bound_ms']:.4f} ms, {scan['bound_ms'] / scan['ms']:.3f} of "
+        f"it); max |kernel - plain| {err}")
+    del x, a, Bm, Cm
+    torch.cuda.empty_cache()
+
+    params = init_model(cfg, 28, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             28))
+    fa.reset_launches()
+    sk.reset_launches()
+    with torch.inference_mode():
+        logits = prefill_step(cfg, RunConfig(attn_impl="pallas",
+                                             use_pallas=True), params,
+                              {"tokens": toks})
+    counts = {"flash_sm90": fa.launches_by_path["sm90"],
+              "ssm_scan": sk.launches["ssm_scan"]}
+    finite = bool(torch.isfinite(logits).all())
+    del params, logits
+    torch.cuda.empty_cache()
+    want = {"flash_sm90": len(cfg.hybrid_layer_ids),
+            "ssm_scan": cfg.n_layers}
+    log(f"  one prefill of the published model (B 1, S {S}): launches "
+        f"{counts} (expected {want}), logits finite: {finite}")
+    if counts != want or not finite:
+        raise AssertionError(f"zamba2_7b_instruct prefill: launches "
+                             f"{counts}, expected {want}; finite {finite}")
+    flash["launches"] = counts["flash_sm90"]
+    scan["launches"] = counts["ssm_scan"]
+    return {"flash_attention_d224": flash, "ssm_scan_g2": scan}
 
 
 def time_scans(dev):
@@ -3903,6 +4020,7 @@ def main() -> int:
         t_flash = time_flash(dev, 8192)
     time_flash(dev, 8192, H=32, KV=32, D=112)    # zamba2_7b's attention
     t_ssm, t_wkv = time_scans(dev)
+    t_zamba2 = time_zamba2_instruct(dev)    # rows 4″ and 5′
     log(f"  phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # phase 12's CPU twins run beside the card from here on (phases 8-12),
@@ -3989,6 +4107,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    for name, source, replaces in (
+            ("flash_attention_d224",
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention.py:123"),
+            ("ssm_scan_g2", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan.py:85")):
+        t = t_zamba2[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, **t})
     for k in kernels:
         if k["launches"] == 0 or not math.isfinite(k["ms"]):
             raise AssertionError(f"{k['name']}: not launched on the path")

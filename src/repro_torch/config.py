@@ -284,6 +284,62 @@ class ModelConfig:
         return int(self.param_count() - dead * self.n_units)
 
 
+@dataclasses.dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """A published Zamba2 hybrid (``configs/zamba2_7b_instruct.py``),
+    beside the reference's fields rather than among them: ``n_layers``
+    Mamba2 layers, of which those in ``hybrid_layer_ids`` first run one of
+    ``num_mem_blocks`` weight-shared transformer blocks (in turn) on
+    concat(x, token embedding) and feed its output, through a per-layer
+    linear map, into the Mamba2 layer's input (``models/hybrid.py``).
+    ``block_pattern`` is ``("mamba",)``: the reference's unit grammar
+    cannot say this, and only ``models/hybrid.py`` reads the layer list.
+    ``d_head`` is the shared attention's head (2·d_model / n_heads);
+    ``ssm_groups`` the B / C groups; ``adapter_rank`` the rank of each
+    hybrid layer's adapter on the shared MLP's gate/up projection."""
+
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 128
+    ssm_groups: int = 1
+
+    @property
+    def has_attention(self) -> bool:
+        return bool(self.hybrid_layer_ids)
+
+    @property
+    def attn_scale(self) -> float:
+        """Zamba2's shared attention scales q·k by (d_head / 2)^-1/2: its
+        input is concat(x, e), twice the model width."""
+        return (self.d_head / 2) ** -0.5
+
+    def shared_block_of(self, layer: int) -> int:
+        """The shared block a hybrid layer runs: the blocks in turn."""
+        return self.hybrid_layer_ids.index(layer) % self.num_mem_blocks
+
+    def param_count(self) -> int:
+        M, F, V, r = self.d_model, self.d_ff, self.vocab_size, \
+            self.adapter_rank
+        Din, H, N, G = self.ssm_d_inner, self.ssm_n_heads, self.ssm_state, \
+            self.ssm_groups
+        conv = Din + 2 * G * N
+        mamba = (M + M * (Din + conv + H) + self.ssm_conv * conv + conv
+                 + 3 * H + Din + Din * M)
+        A = 2 * M
+        shared = (A + 3 * A * self.n_heads * self.d_head
+                  + self.n_heads * self.d_head * M + M + M * 2 * F + F * M)
+        hybrid = M * M + M * r + r * 2 * F
+        total = V * M + self.n_layers * mamba + M
+        total += self.num_mem_blocks * shared
+        total += len(self.hybrid_layer_ids) * hybrid
+        if not self.tie_embeddings:
+            total += M * V
+        return int(total)
+
+    def active_param_count(self) -> int:
+        return self.param_count()
+
+
 # ---------------------------------------------------------------------------
 # Input shapes (assigned)
 # ---------------------------------------------------------------------------

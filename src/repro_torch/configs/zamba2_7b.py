@@ -1,5 +1,11 @@
 """Zamba2-7B — hybrid: Mamba2 blocks + weight-shared attention blocks.
 
+The JAX reference's assigned preset of this name, kept field for field
+(``tests/test_torch_configs.py``), not the published model: the published
+Zamba2-7B-Instruct (heads of 224 over concat(x, embedding), 2 shared
+blocks at 13 irregular layers with per-layer adapters and linear maps, 2
+B / C groups, a gated GELU MLP) is ``configs/zamba2_7b_instruct.py``.
+
 Assigned: [hybrid] 81L d_model=3584 32H (GQA kv=32 = MHA) d_ff=14336
 vocab=32000, ssm_state=64 [arXiv:2411.15242].  Repeating unit
 [shared-attn, mamba2, mamba2] × 27 = 81 layers; the attention (+MLP) weights

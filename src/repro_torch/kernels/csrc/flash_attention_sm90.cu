@@ -65,7 +65,9 @@
 // dimension: TMA fills those columns with zeros, which pads D to 128 at no
 // cost in correctness; D = 16, 32 pad to 64 the same way.  Ragged Sq and Sk come in as
 // zero rows too.  At D 128: Q 32 KB + 3 stages x (K 32 KB + V 32 KB) = 224 KB
-// of the 227 KB a block may hold.
+// of the 227 KB a block may hold.  D 224 (a published Zamba2's shared
+// attention) does not fit that layout: it runs flash_sm90_wide_kernel below,
+// with K/V tiles of 64 keys in rings of their own.
 // Tensor maps are built on the host per call from the operands' own strides
 // (passed as __grid_constant__ CUtensorMap), so the model's (B, S, H, D)
 // layout and the (B, KV, G, S, D) entry launch without a copy; the wrapper
@@ -327,13 +329,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[N],
 // with m and l updated; alpha = exp(m - m') per row.  sc[4 j + e] holds row
 // row0 + 8 (e >> 1), key k0 + 8 j + colq + (e & 1); a row's 32 keys of this
 // lane and the other three lanes of its quad make the tile's 128.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+// NS = keys / 2: 64 for a tile of 128 keys, 32 for the wide kernel's 64.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NS], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              const Params& p, int k0,
                                              int row0, int colq, bool edge,
                                              float pad) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < NS / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = sc[4 * j + e] * p.scale_log2;
@@ -353,7 +357,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < NS / 4; ++j)
       mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -362,7 +366,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
     m[r] = mn;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NS / 4; ++j) {
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
         const float pe = ex2(sc[4 * j + e] - mn);
@@ -376,10 +380,11 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
 
 // P in bf16: the accumulator fragment of keys 16 kk .. 16 kk + 15 is
 // wgmma's A fragment of k-step kk.
-__device__ __forceinline__ void to_bf16(uint32_t (&pa)[32],
-                                        const float (&sc)[64]) {
+template <int NS>
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[NS / 2],
+                                        const float (&sc)[NS]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < NS / 8; ++kk) {
 #pragma unroll
     for (int x = 0; x < 4; ++x)
       pa[4 * kk + x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
@@ -568,6 +573,245 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---- the wide kernel: D 224 (a published Zamba2's shared attention) -------
+// At D 224 the Q tile alone is 56 KB (64 KB as four boxes), and a K + V tile
+// of 128 keys another 128 KB, so the layout above does not fit.  Here a K/V
+// tile is KW = 64 keys, and K and V have rings of their own, each guarded by
+// its own full / empty barriers: a K stage is released as soon as S = Q K^T
+// of its tile is done, a V stage when P V of its tile is done.  So the load
+// of K(t + 1) overlaps all of step t with two stages per ring: Q 64 KB +
+// 2 x K 32 KB + 2 x V 32 KB = 192 KB.  (Tiles of 32 keys in four stages each
+// measured 6.24-6.28 ms against 5.87 at the zamba2_7b.prefill cell's layer.)
+// S is wgmma m64n64k16 over KSTEPS = 14 k-steps (D 224 / 16: the last box's
+// zero columns past D are not multiplied), O += P V two wgmma m64n128k16 per
+// k-step, one per 128 columns of 256 (the columns past D are TMA zeros,
+// never stored).  O takes 128 fp32 registers per thread, S 32, P 16.
+constexpr int KW = 64;          // keys per K / V tile
+constexpr int WSTAGES = 2;      // stages of each of the K and V rings
+constexpr int KSTEPS = 14;      // k-steps of Q K^T at D 224
+
+struct WideSmem {
+  static constexpr int NB = 4;                          // boxes per row
+  static constexpr int QBOX = BLK * BOX * 2;            // 128 rows: 16 KB
+  static constexpr int KBOX = KW * BOX * 2;             // KW rows
+  static constexpr int Q = 0;
+  static constexpr int K = NB * QBOX;
+  static constexpr int V = K + WSTAGES * NB * KBOX;
+  static constexpr int BAR = V + WSTAGES * NB * KBOX;   // q, K full / empty,
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * WSTAGES);  // V full / empty
+};
+
+// S (64 x 64, fp32) (+)= Q (64 x 16) K^T: both from shared memory, K-major.
+__device__ __forceinline__ void mma_qk(float (&d)[32], uint64_t a,
+                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void issue_qk_wide(float (&sc)[KW / 2],
+                                              uint32_t qaddr,
+                                              uint32_t kaddr) {
+  constexpr int QBOX = WideSmem::QBOX, KBOX = WideSmem::KBOX;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const uint32_t c = (kk % 4) * 32;
+    mma_qk(sc, sw128_desc(qaddr + (kk / 4) * QBOX + c, 16, 1024),
+           sw128_desc(kaddr + (kk / 4) * KBOX + c, 16, 1024), kk);
+  }
+}
+
+// O += P V of one V tile of KW keys, 16 keys per k-step, each k-step two
+// wgmma of 128 columns (boxes 0-1 and 2-3, LBO one box apart).
+__device__ __forceinline__ void issue_pv_wide(float (&o)[128],
+                                              const uint32_t (&pa)[KW / 4],
+                                              uint32_t vaddr) {
+  constexpr int KBOX = WideSmem::KBOX;
+  float(&o0)[64] = *reinterpret_cast<float(*)[64]>(&o[0]);
+  float(&o1)[64] = *reinterpret_cast<float(*)[64]>(&o[64]);
+#pragma unroll
+  for (int kk = 0; kk < KW / 16; ++kk) {
+    mma_pv(o0, &pa[4 * kk], sw128_desc(vaddr + kk * 16 * 128, KBOX, 1024));
+    mma_pv(o1, &pa[4 * kk],
+           sw128_desc(vaddr + 2 * KBOX + kk * 16 * 128, KBOX, 1024));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_sm90_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const Params p) {
+  using L = WideSmem;
+  constexpr int NB = L::NB, KBOX = L::KBOX;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t kfull0 = q_full + 8, kempty0 = kfull0 + 8 * WSTAGES;
+  const uint32_t vfull0 = kempty0 + 8 * WSTAGES;
+  const uint32_t vempty0 = vfull0 + 8 * WSTAGES;
+
+  const int bh = (int)blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kv = h / p.G, g = h % p.G;
+  const int q0 = (p.nq - 1 - (int)blockIdx.y) * BLK;   // longest tiles first
+  // the K tiles holding a live key, at the plain version's tiles
+  const int bq = min(BLK, p.Sq), bk = min(KW, p.Sk);
+  const int nk = (p.Sk + KW - 1) / KW;
+  const int t_hi = p.causal ? min(nk, (q0 + bq - 1) / KW + 1) : nk;
+  int t_lo = 0;
+  if (p.window > 0) {   // live iff t * KW + bk - 1 > q0 - window
+    const int x = q0 - p.window - bk + 1;
+    t_lo = x < 0 ? 0 : x / KW + 1;
+  }
+  const int n = max(t_hi - t_lo, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(kfull0 + 8 * s, 1);
+      mbar_init(kempty0 + 8 * s, 8);   // one arrival per consumer warp
+      mbar_init(vfull0 + 8 * s, 1);
+      mbar_init(vempty0 + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = (int)threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: K(i) then V(i), each into its own ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, NB * L::QBOX);
+      for (int c = 0; c < NB; ++c)
+        tma_load_5d(base + L::Q + c * L::QBOX, &tq, q_full, c * BOX, q0, g,
+                    kv, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % WSTAGES, use = i / WSTAGES;
+        const int k0 = (t_lo + i) * KW;
+        if (use > 0) mbar_wait(kempty0 + 8 * s, (use - 1) & 1);
+        mbar_expect_tx(kfull0 + 8 * s, NB * KBOX);
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(base + L::K + (s * NB + c) * KBOX, &tk, kfull0 + 8 * s,
+                      c * BOX, k0, kv, b);
+        if (use > 0) mbar_wait(vempty0 + 8 * s, (use - 1) & 1);
+        mbar_expect_tx(vfull0 + 8 * s, NB * KBOX);
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(base + L::V + (s * NB + c) * KBOX, &tv, vfull0 + 8 * s,
+                      c * BOX, k0, kv, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int tid = (int)threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg_lo = q0 + 64 * cw, wg_hi = wg_lo + 63;
+  const int row0 = wg_lo + 16 * warp + lane / 4;   // rows row0, row0 + 8
+  const int colq = 2 * (lane % 4);                 // first of 2 columns / 8
+  const uint32_t qaddr = base + L::Q + cw * 64 * 128;
+  const float pad = p.Sk < KW ? -INFINITY : NEG_INF;
+
+  const auto release = [&](uint32_t empty) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);
+  };
+  const auto edge = [&](int k0) {
+    return k0 + KW > p.Sk || (p.causal && k0 + KW - 1 > wg_lo) ||
+           (p.window > 0 && k0 <= wg_hi - p.window);
+  };
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[KW / 2];
+  uint32_t pa[KW / 4];
+  mbar_wait(q_full, 0);
+
+  if (n > 0) {
+    // the ping-pong of the kernel above, with K released after S and V
+    // after P V
+    if (cw == 1) bar_arrive(1);
+    mbar_wait(kfull0, 0);
+    bar_sync(1 + cw);
+    wg_fence();
+    issue_qk_wide(sc, qaddr, base + L::K);
+    wg_commit();
+    bar_arrive(2 - cw);
+    wg_wait0();
+    fence_regs(sc);
+    release(kempty0);
+    softmax_tile(sc, m, l, alpha, p, t_lo * KW, row0, colq,
+                 edge(t_lo * KW), pad);
+    to_bf16(pa, sc);
+
+    for (int i = 1; i < n; ++i) {
+      const int s = i % WSTAGES, sp = (i - 1) % WSTAGES;
+      const int k0 = (t_lo + i) * KW;
+      mbar_wait(kfull0 + 8 * s, (i / WSTAGES) & 1);
+      mbar_wait(vfull0 + 8 * sp, ((i - 1) / WSTAGES) & 1);
+      bar_sync(1 + cw);
+      fence_regs(o);
+      fence_regs(pa);
+      wg_fence();
+      issue_qk_wide(sc, qaddr, base + L::K + s * NB * KBOX);
+      wg_commit();
+      issue_pv_wide(o, pa, base + L::V + sp * NB * KBOX);
+      wg_commit();
+      bar_arrive(2 - cw);
+      wg_wait1();                 // S of tile i; P V of tile i - 1 runs on
+      fence_regs(sc);
+      release(kempty0 + 8 * s);
+      softmax_tile(sc, m, l, alpha, p, k0, row0, colq, edge(k0), pad);
+      wg_wait0();
+      fence_regs(o);
+      release(vempty0 + 8 * sp);
+      rescale(o, alpha);
+      to_bf16(pa, sc);
+    }
+
+    const int sl = (n - 1) % WSTAGES;
+    mbar_wait(vfull0 + 8 * sl, ((n - 1) / WSTAGES) & 1);
+    bar_sync(1 + cw);
+    fence_regs(o);
+    fence_regs(pa);
+    wg_fence();
+    issue_pv_wide(o, pa, base + L::V + sl * NB * KBOX);
+    wg_commit();
+    if (cw == 0) bar_arrive(2);
+    wg_wait0();
+    fence_regs(o);
+    release(vempty0 + 8 * sl);
+  }
+
+  // out = O / max(l, 1e-30) in bf16, masked at Sq and D
+  __nv_bfloat16* ob = p.o + b * p.os_b + kv * p.os_kv + g * p.os_g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qp = row0 + 8 * r;
+    if (qp >= p.Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = ob + (long long)qp * p.os_s;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 8 * j + colq;
+      if (col < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / den,
+                                  o[4 * j + 2 * r + 1] / den);
+    }
+  }
+}
+
 // ---- host: tensor maps and launch ------------------------------------------
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -597,16 +841,17 @@ EncodeTiled encode_tiled() {
 }
 
 // A bf16 tensor map of `rank` dims, innermost (the head dim, contiguous)
-// first; strides in elements for dims 1..rank-1.  Boxes of 64 x 128 x 1...,
+// first; strides in elements for dims 1..rank-1.  Boxes of 64 x rows x 1...,
 // 128-byte swizzle, zeros out of bounds.
 int make_map(CUtensorMap* map, const void* ptr, int rank,
-             const cuuint64_t* dims, const long long* strides) {
+             const cuuint64_t* dims, const long long* strides,
+             int rows = BLK) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return ERR_NO_ENCODE;
   cuuint64_t gstride[4];
   cuuint32_t box[5], estride[5];
   for (int i = 0; i < rank; ++i) {
-    box[i] = i == 0 ? BOX : (i == 1 ? BLK : 1);
+    box[i] = i == 0 ? BOX : (i == 1 ? rows : 1);
     estride[i] = 1;
     if (i > 0) gstride[i - 1] = (cuuint64_t)strides[i - 1] * 2;
   }
@@ -633,6 +878,20 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
   return (int)cudaGetLastError();
 }
 
+int launch_wide(const CUtensorMap& tq, const CUtensorMap& tk,
+                const CUtensorMap& tv, const Params& prm, int BH,
+                cudaStream_t stream) {
+  auto kern = flash_sm90_wide_kernel;
+  const int smem = WideSmem::BYTES + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, prm.nq);
+  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, prm);
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace
 
 // ---- plain C interface (loaded with ctypes) --------------------------------
@@ -640,16 +899,19 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 // contiguous head dim.  strides: 14 element strides — q (b, kv, g, s),
 // k (b, kv, s), v (b, kv, s), o (b, kv, g, s); every one a multiple of 8
 // elements (16 bytes) and q/k/v 16-byte aligned (the TMA's rules, checked by
-// the wrapper).  D in {16, 32, 64, 80, 112, 128}.  Returns 0 when launched,
-// a cudaError_t, or ERR_NO_ENCODE / ERR_ENCODE + CUresult.
+// the wrapper).  D in {16, 32, 64, 80, 112, 128, 224}; D 224 launches the
+// wide kernel.  Returns 0 when launched, a cudaError_t, or ERR_NO_ENCODE /
+// ERR_ENCODE + CUresult.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o,
                                         const long long* strides, int B,
                                         int KV, int G, int Sq, int Sk, int D,
                                         float scale, int causal, int window,
                                         void* stream) {
-  if (D != 16 && D != 32 && D != 64 && D != 80 && D != 112 && D != 128)
+  if (D != 16 && D != 32 && D != 64 && D != 80 && D != 112 && D != 128 &&
+      D != 224)
     return (int)cudaErrorInvalidValue;
+  const int rows = D > 128 ? KW : BLK;   // keys per K / V box
   const long long *qs = strides, *ks = strides + 4, *vs = strides + 7,
                   *os = strides + 10;
   CUtensorMap tq, tk, tv;
@@ -661,8 +923,8 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
   const long long kst[3] = {ks[2], ks[1], ks[0]};
   const long long vst[3] = {vs[2], vs[1], vs[0]};
   int err = make_map(&tq, q, 5, qdims, qst);
-  if (!err) err = make_map(&tk, k, 4, kdims, kst);
-  if (!err) err = make_map(&tv, v, 4, kdims, vst);
+  if (!err) err = make_map(&tk, k, 4, kdims, kst, rows);
+  if (!err) err = make_map(&tv, v, 4, kdims, vst, rows);
   if (err) return err;
   Params prm;
   prm.o = static_cast<__nv_bfloat16*>(o);
@@ -681,10 +943,13 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
   prm.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64) return launch<64>(tq, tk, tv, prm, B * KV * G, s);
-  return launch<128>(tq, tk, tv, prm, B * KV * G, s);
+  if (D <= 128) return launch<128>(tq, tk, tv, prm, B * KV * G, s);
+  return launch_wide(tq, tk, tv, prm, B * KV * G, s);
 }
 
 extern "C" int flash_attention_sm90_block() { return BLK; }
+
+extern "C" int flash_attention_sm90_wide_block() { return KW; }
 
 extern "C" const char* flash_attention_sm90_error_string(int err) {
   if (err == ERR_NO_ENCODE)

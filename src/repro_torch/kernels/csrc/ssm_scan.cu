@@ -15,8 +15,12 @@
 // zamba2's A = -(1..112) and dt up to 0.1), whose exp is inf, and the TPU
 // kernel's select-after-exp would be inf * 0 = NaN in a product here.
 //
-// Bound.  Operations: per (b, chunk) the lower triangle of C . B^T (B and C
-// are shared by all heads, n_groups = 1); per (b, h, chunk) the decayed
+// B and C come in G groups (Mamba2's n_groups): head h reads group
+// h / (H / G), so C . B^T is formed once per (b, group, chunk) and shared by
+// the group's H / G heads.  G = 1 is the same arithmetic at offset zero.
+//
+// Bound.  Operations: per (b, group, chunk) the lower triangle of C . B^T;
+// per (b, h, chunk) the decayed
 // Q x Q product against x (Q^2 P / 2 multiply-adds), the inter-chunk term and
 // the chunk's state contribution (Q N P each); against x and y read or
 // written once (8 bytes per element of x).  At the path's shape (B 1, S 8 192,
@@ -27,9 +31,9 @@
 // blocks for 132 SMs at B = 1 and form C . B^T once per head.  So the work
 // is taken apart along chunks, as Mamba2's own GPU SSD does, in four
 // launches on one stream (scratch from the wrapper, torch.empty):
-//   1. ssd_cb_kernel, per (b, chunk, 64 x 64 tile J <= I): G^T = B_J C_I^T
-//      into cb (B, nc, Q, ldq), j-major so step 4 reads it row by row; only
-//      tiles on or below the diagonal are formed or read.
+//   1. ssd_cb_kernel, per (b, group, chunk, 64 x 64 tile J <= I): G^T =
+//      B_J C_I^T into cb (B, G, nc, Q, ldq), j-major so step 4 reads it row
+//      by row; only tiles on or below the diagonal are formed or read.
 //   2. ssd_state_kernel, per (b, h, chunk): the inclusive cumulative sum of
 //      a into cum (B, H, nc, Q), then dS_c = B^T diag(exp(cum_{Q-1} - cum)) x
 //      into st (B, nc, H, N, P), chunk-major: step 3's threads of all heads
@@ -85,14 +89,16 @@ struct Args {
   const void* cm;
   float* y;
   float* state;
-  float* cb;    // (B, nc, Q, ldq): cb[j][i] = C_i . B_j for tiles J <= I
+  float* cb;    // (B, G, nc, Q, ldq): cb[j][i] = C_i . B_j for tiles J <= I
   float* cum;   // (B, H, nc, Q): inclusive cumulative sum of a per chunk
   float* st;    // (B, nc, H, N, P): dS_c, then the state entering chunk c
   long long xs_b, xs_s, xs_h;   // element strides; P contiguous
   long long as_b, as_s, as_h;
   long long bs_b, bs_s;         // N contiguous
   long long cs_b, cs_s;
+  long long bs_g, cs_g;         // the group's stride (0 when G = 1)
   int S, H, Q, nc, ldq;   // ldq: Q rounded up to a multiple of 4
+  int G, hpg;             // B / C groups, heads per group
 };
 
 // A thread (ty, tx) of a product owns the 8 rows 8 ty + r (a warp's rows
@@ -222,27 +228,30 @@ __device__ __forceinline__ void load_x(float* dst, const float* xb,
   }
 }
 
-// ---- 1. C . B^T per (b, chunk), lower-triangle tiles ----------------------
+// ---- 1. C . B^T per (b, group, chunk), lower-triangle tiles ---------------
 template <typename T, int N>
 __global__ void __launch_bounds__(64) ssd_cb_kernel(Args g) {
   extern __shared__ float4 smem4[];
   float* BsT = reinterpret_cast<float*>(smem4);   // N x LDT
   float* CsT = BsT + N * LDT;                     // N x LDT
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
-  const int tile = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int tile = blockIdx.x, c = blockIdx.y, bg = blockIdx.z;
+  const int b = bg / g.G, grp = bg % g.G;
   int I = 0;
   while ((I + 1) * (I + 2) / 2 <= tile) ++I;
   const int J = tile - I * (I + 1) / 2;
   const int Q = g.Q, t0 = c * Q;
-  load_rows<T, N, 64, true>(BsT, static_cast<const T*>(g.bm) + b * g.bs_b,
-                            g.bs_s, t0, J * TR, Q, g.S);
-  load_rows<T, N, 64, true>(CsT, static_cast<const T*>(g.cm) + b * g.cs_b,
-                            g.cs_s, t0, I * TR, Q, g.S);
+  load_rows<T, N, 64, true>(
+      BsT, static_cast<const T*>(g.bm) + b * g.bs_b + grp * g.bs_g, g.bs_s,
+      t0, J * TR, Q, g.S);
+  load_rows<T, N, 64, true>(
+      CsT, static_cast<const T*>(g.cm) + b * g.cs_b + grp * g.cs_g, g.cs_s,
+      t0, I * TR, Q, g.S);
   __syncthreads();
   float acc[8][8];
   zero(acc);
   tile_mma<TR / 2>(acc, BsT, LDT, CsT, LDT, N, ty, tx);
-  float* out = g.cb + ((long long)b * g.nc + c) * Q * g.ldq;
+  float* out = g.cb + ((long long)bg * g.nc + c) * Q * g.ldq;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int j = J * TR + 8 * ty + r;
@@ -324,7 +333,8 @@ ssd_state_kernel(Args g) {
   const float total = cum[Q - 1];
   for (int i = tid; i < Q; i += NT) w[i] = expf(total - cum[i]);
 
-  const T* bb = static_cast<const T*>(g.bm) + b * g.bs_b;
+  const T* bb = static_cast<const T*>(g.bm) + b * g.bs_b +
+                (h / g.hpg) * g.bs_g;
   const float* xb = g.x + b * g.xs_b + h * g.xs_h;
   float acc[8][8];
   zero(acc);
@@ -407,7 +417,7 @@ __global__ void __launch_bounds__(P) ssd_out_kernel(Args g) {
   const int nb = (Q + TR - 1) / TR;
   const int I = nb - 1 - (int)(blockIdx.x % nb);   // longest blocks first
   const int c = blockIdx.x / nb, h = blockIdx.y, b = blockIdx.z;
-  const int t0 = c * Q, i0 = I * TR;
+  const int t0 = c * Q, i0 = I * TR, grp = h / g.hpg;
   const long long bh = (long long)b * g.H + h;
   const float* cumg = g.cum + (bh * g.nc + c) * Q;
   const float* xb = g.x + b * g.xs_b + h * g.xs_h;
@@ -418,8 +428,9 @@ __global__ void __launch_bounds__(P) ssd_out_kernel(Args g) {
     cumI[r] = v;
     ecumI[r] = in ? expf(v) : 0.f;
   }
-  load_rows<T, N, NT, true>(CsT, static_cast<const T*>(g.cm) + b * g.cs_b,
-                            g.cs_s, t0, i0, Q, S);
+  load_rows<T, N, NT, true>(
+      CsT, static_cast<const T*>(g.cm) + b * g.cs_b + grp * g.cs_g, g.cs_s,
+      t0, i0, Q, S);
   const float* sg = g.st + (((long long)b * g.nc + c) * g.H + h) * N * P;
 #pragma unroll 4
   for (int e = tid; e < N * P / 4; e += NT)
@@ -438,7 +449,8 @@ __global__ void __launch_bounds__(P) ssd_out_kernel(Args g) {
   }
 
   // intra-chunk term over the tiles J <= I
-  const float* cbc = g.cb + ((long long)b * g.nc + c) * Q * g.ldq;
+  const float* cbc =
+      g.cb + (((long long)b * g.G + grp) * g.nc + c) * Q * g.ldq;
   for (int J = 0; J <= I; ++J) {
     const int j0 = J * TR;
     __syncthreads();   // the last product's readers are done
@@ -513,7 +525,7 @@ int launch(const Args& g, int B, cudaStream_t stream) {
     auto kern = ssd_cb_kernel<T, N>;
     const size_t smem = sizeof(float) * 2 * N * LDT;
     if ((err = allow_smem(kern, smem)) != cudaSuccess) return (int)err;
-    kern<<<dim3(nb * (nb + 1) / 2, g.nc, B), 64, smem, stream>>>(g);
+    kern<<<dim3(nb * (nb + 1) / 2, g.nc, B * g.G), 64, smem, stream>>>(g);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   {
@@ -559,28 +571,30 @@ int launch_np(int N, int P, const Args& g, int B, cudaStream_t stream) {
 }  // namespace
 
 // ---- plain C interface (loaded with ctypes) --------------------------------
-// strides: 10 element strides — x (b, s, h), a (b, s, h), Bm (b, s),
-// Cm (b, s); x's P and Bm / Cm's N are contiguous, x is 16-byte aligned with
-// strides that are multiples of 4.  y (B, S, H, P) and state (B, H, N, P)
-// are contiguous fp32; scratch: cb (B, nc, Q, ldq), cum (B, H, nc, Q) and
+// strides: 12 element strides — x (b, s, h), a (b, s, h), Bm (b, s),
+// Cm (b, s), Bm's group, Cm's group; x's P and Bm / Cm's N are contiguous,
+// x is 16-byte aligned with strides that are multiples of 4.  G groups of
+// B / C, H a multiple of G.  y (B, S, H, P) and state (B, H, N, P)
+// are contiguous fp32; scratch: cb (B, G, nc, Q, ldq), cum (B, H, nc, Q) and
 // st (B, nc, H, N, P) fp32, nc = ceil(S / Q), ldq = Q rounded up to a
 // multiple of 4.  bc_dtype: 0 = fp32, 1 = bf16 (Bm
 // and Cm alike).  Launches four kernels on the stream; returns the first
 // cudaError_t (0 = all launched); cudaErrorInvalidValue for an unsupported
-// N, P or chunk.
+// N, P, chunk or group count.
 extern "C" int ssm_scan_fwd(const void* x, const void* a, const void* bm,
                             const void* cm, void* y, void* state, void* cb,
                             void* cum, void* st, const long long* strides,
-                            int B, int S, int H, int P, int N, int Q,
+                            int B, int S, int H, int P, int N, int Q, int G,
                             int bc_dtype, void* stream) {
-  if (Q < 1 || Q > MAX_Q) return (int)cudaErrorInvalidValue;
+  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
   Args g{static_cast<const float*>(x), static_cast<const float*>(a), bm, cm,
          static_cast<float*>(y), static_cast<float*>(state),
          static_cast<float*>(cb), static_cast<float*>(cum),
          static_cast<float*>(st),
          strides[0], strides[1], strides[2], strides[3], strides[4],
          strides[5], strides[6], strides[7], strides[8], strides[9],
-         S, H, Q, (S + Q - 1) / Q, (Q + 3) / 4 * 4};
+         strides[10], strides[11],
+         S, H, Q, (S + Q - 1) / Q, (Q + 3) / 4 * 4, G, H / G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bc_dtype == 0) return launch_np<float>(N, P, g, B, s);
   return launch_np<__nv_bfloat16>(N, P, g, B, s);

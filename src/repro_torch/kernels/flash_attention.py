@@ -44,7 +44,12 @@ calls do not count).
 
 Tiling: ``BLK_Q = 128`` positions of one head per query tile in both; K
 tiles of ``SM90_BLK_K = 128`` keys (bf16) or ``TF32X3_BLK_K = 32`` (fp32,
-whose big and small copies of K and Vᵀ fill the shared memory).
+whose big and small copies of K and Vᵀ fill the shared memory).  A bf16
+head dim over 128 (zamba2_7b_instruct's 224) launches the sm90 source's
+wide kernel, whose 64 KB query tile leaves room for K/V tiles of
+``SM90_WIDE_BLK_K = 64`` keys in rings of their own.  The softmax scale is
+1/√D unless the caller gives another (Zamba2's shared attention takes
+(D/2)^-½).
 :func:`attention_cost` counts the work of the mask itself, which no tiling
 changes: the bound the kernels are measured against.
 """
@@ -64,10 +69,12 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 BLK_Q = 128          # both kernels: query positions (of one head) per block
 SM90_BLK_K = 128     # csrc/flash_attention_sm90.cu: keys per K/V tile
+SM90_WIDE_BLK_K = 64  # the same source's wide kernel (D over 128)
 TF32X3_BLK_K = 32    # csrc/flash_attention.cu: keys per K/V tile
 # the head dims each kernel is built for: the sm90 kernel pads any D over 64
-# to 128 with the TMA's zeros (D 80: hubert_xlarge; D 112: zamba2_7b)
-HEAD_DIMS = {"sm90": (16, 32, 64, 80, 112, 128),
+# to 128 with the TMA's zeros (D 80: hubert_xlarge; D 112: zamba2_7b), and
+# its wide kernel D 224 to 256 (zamba2_7b_instruct)
+HEAD_DIMS = {"sm90": (16, 32, 64, 80, 112, 128, 224),
              "tf32x3": (16, 32, 64, 112, 128)}
 _PATHS = {torch.bfloat16: "sm90", torch.float32: "tf32x3"}
 _BLK_K = {"sm90": SM90_BLK_K, "tf32x3": TF32X3_BLK_K}
@@ -93,13 +100,15 @@ def kernel_path(dtype: torch.dtype) -> str:
     return _PATHS[dtype]
 
 
-def kernel_tiles(Sq: int, Sk: int,
-                 dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
-    """(blk_q, blk_k) of the CUDA kernel that ``dtype`` launches, in the
-    plain version's terms (``blk_q`` positions of all G heads per query
-    tile; both kernels put one head's 128 positions in a block, so G
-    does not enter)."""
-    return min(BLK_Q, Sq), min(_BLK_K[kernel_path(dtype)], Sk)
+def kernel_tiles(Sq: int, Sk: int, dtype: torch.dtype = torch.float32,
+                 D: int = 0) -> Tuple[int, int]:
+    """(blk_q, blk_k) of the CUDA kernel that ``dtype`` and head dim
+    ``D`` launch, in the plain version's terms (``blk_q`` positions of all
+    G heads per query tile; both kernels put one head's 128 positions in a
+    block, so G does not enter)."""
+    path = kernel_path(dtype)
+    blk_k = SM90_WIDE_BLK_K if path == "sm90" and D > 128 else _BLK_K[path]
+    return min(BLK_Q, Sq), min(blk_k, Sk)
 
 
 def attention_cost(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
@@ -190,11 +199,12 @@ def _sm90_library() -> ctypes.CDLL:
     lib.flash_attention_sm90_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                              f, i, i, p]
     lib.flash_attention_sm90_fwd.restype = i
-    lib.flash_attention_sm90_block.restype = i
-    if lib.flash_attention_sm90_block() != SM90_BLK_K:
-        raise RuntimeError(f"flash_attention_sm90_block() = "
-                           f"{lib.flash_attention_sm90_block()}, expected "
-                           f"{SM90_BLK_K}")
+    for name, want in (("flash_attention_sm90_block", SM90_BLK_K),
+                       ("flash_attention_sm90_wide_block", SM90_WIDE_BLK_K)):
+        fn = getattr(lib, name)
+        fn.restype = i
+        if fn() != want:
+            raise RuntimeError(f"{name}() = {fn()}, expected {want}")
     return lib
 
 
@@ -220,7 +230,8 @@ def _shapes(q, k, v) -> Tuple[int, int, int, int, int, int]:
     return B, KV, G, Sq, Sk, D
 
 
-def _launch(q, k, v, out, causal, window, stream) -> None:
+def _launch(q, k, v, out, causal, window, stream,
+            scale: Optional[float] = None) -> None:
     """Both kernels take the same arguments: 14 element strides of q, k, v
     and out, read through tensor maps after the TMA's rules are checked."""
     B, KV, G, Sq, Sk, D = _shapes(q, k, v)
@@ -239,7 +250,8 @@ def _launch(q, k, v, out, causal, window, stream) -> None:
     err = getattr(lib, fwd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         (ctypes.c_longlong * 14)(*strides), B, KV, G, Sq, Sk, D,
-        float(1.0 / math.sqrt(D)), int(causal), int(window), stream)
+        float(1.0 / math.sqrt(D)) if scale is None else float(scale),
+        int(causal), int(window), stream)
     build.raise_on(lib, source, err, "flash_attention")
 
 
@@ -247,13 +259,14 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, window: int = 0,
                           blk_q: Optional[int] = None,
                           blk_k: Optional[int] = None,
-                          out: Optional[torch.Tensor] = None
+                          out: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None
                           ) -> torch.Tensor:
     """q: (B, KV, G, Sq, D); k/v: (B, KV, Sk, D).  Returns a q-shaped
     output in q's dtype (written into ``out`` when given: a q-shaped view
     with a contiguous head dim).  ``blk_q`` / ``blk_k`` tile the plain
     version on the CPU; each CUDA kernel has its own (:func:`kernel_tiles`)
-    and refuses others."""
+    and refuses others.  ``scale`` multiplies q·k (1/√D when None)."""
     B, KV, G, Sq, Sk, D = _shapes(q, k, v)
     dev = q.device
     if out is None:
@@ -261,11 +274,11 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif (tuple(out.shape) != tuple(q.shape) or out.dtype != q.dtype
           or out.device != dev):
         raise ValueError(f"out must be {tuple(q.shape)} {q.dtype} on {dev}")
-    kq, kk = kernel_tiles(Sq, Sk, q.dtype)
+    kq, kk = kernel_tiles(Sq, Sk, q.dtype, D)
     if dev.type == "cpu":
         out.copy_(flash_attention_bkgsd_plain(
             q, k, v, causal=causal, window=window, blk_q=blk_q or kq,
-            blk_k=blk_k or kk))
+            blk_k=blk_k or kk, scale=scale))
         return out
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
@@ -278,7 +291,7 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {D}; the {kernel_path(q.dtype)} kernel "
                          f"takes {dims}")
     _launch(q, k, v, out, causal, window,
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, scale)
     launches["flash_attention"] += 1
     launches_by_path[kernel_path(q.dtype)] += 1
     return out
@@ -287,7 +300,8 @@ def flash_attention_bkgsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     blk_q: Optional[int] = None,
-                    blk_k: Optional[int] = None) -> torch.Tensor:
+                    blk_k: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Layout adapter.  q: (B, Sq, H, D); k/v: (B, Sk, KV, D).  Returns
     (B, Sq, H, D) — ``models.attention``'s conventions.  The kernel reads
     and writes these layouts through strides: nothing is transposed or
@@ -305,7 +319,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.reshape(Bb, Sq, KV, G, D).permute(0, 2, 3, 1, 4),
         k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), causal=causal,
         window=window, blk_q=blk_q, blk_k=blk_k,
-        out=out.view(Bb, Sq, KV, G, D).permute(0, 2, 3, 1, 4))
+        out=out.view(Bb, Sq, KV, G, D).permute(0, 2, 3, 1, 4), scale=scale)
     return out
 
 
@@ -313,7 +327,8 @@ def flash_attention_bkgsd_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, causal: bool,
                                 window: int = 0, blk_q: int = 128,
                                 blk_k: int = 128,
-                                matmul: Callable = torch.matmul
+                                matmul: Callable = torch.matmul,
+                                scale: Optional[float] = None
                                 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the same tile loop over K
     tiles in order, online softmax, mask constant, tile skip and fp32 math,
@@ -336,7 +351,7 @@ def flash_attention_bkgsd_plain(q: torch.Tensor, k: torch.Tensor,
         B * KV, nk, blk_k, D)
     vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, pk)).reshape(
         B * KV, nk, blk_k, D)
-    scale = float(1.0 / math.sqrt(D))
+    scale = float(1.0 / math.sqrt(D)) if scale is None else float(scale)
     q_pos = (torch.arange(nq, device=dev)[:, None] * blk_q
              + torch.arange(blk_q, device=dev)).repeat(1, G)   # (nq, R)
     m = torch.full((B * KV, nq, R), NEG_INF, dtype=f32, device=dev)

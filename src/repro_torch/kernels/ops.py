@@ -35,11 +35,13 @@ def _no_graph(name: str, *operands) -> None:
             f"and use_pallas=False, or call it under torch.no_grad()")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) → (B, Sq, H, D) (see
-    ``flash_attention.flash_attention``)."""
+    ``flash_attention.flash_attention``; ``scale`` 1/√D when None)."""
     _no_graph("flash_attention", q, k, v)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
 
 
 def ps_update(w_flat, v_flat, g_flat, coef, *, momentum: float = 0.9,

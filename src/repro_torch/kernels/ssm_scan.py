@@ -11,10 +11,12 @@ Operands follow ``models.ssm.ssd_chunked``:
 
 * x (B, S, H, P) fp32 — the dt-premultiplied inputs;
 * a (B, S, H) fp32 — the per-step log decay (dt · A, negative);
-* Bm / Cm (B, S, N) — the input and output projections (n_groups = 1),
-  fp32 or bf16 (one dtype for both), with a contiguous last dim: the mamba
-  block passes column slices of its (B, S, 2N) ``bc`` tensor, which the
-  kernel reads through element strides without a copy.
+* Bm / Cm (B, S, N) or (B, S, G, N) — the input and output projections,
+  in G groups (Mamba2's ``n_groups``; (B, S, N) is G = 1): head h reads
+  group h // (H / G).  fp32 or bf16 (one dtype for both), with a
+  contiguous last dim: the mamba block passes column slices of its
+  (B, S, 2N) or (B, S, 2GN) ``bc`` tensor, which the kernel reads through
+  element strides without a copy.
 
 Returns (y (B, S, H, P) fp32, final state (B, H, N, P) fp32).  Per chunk of
 Q = min(chunk, S) steps, with cum the inclusive cumulative sum of a::
@@ -40,10 +42,11 @@ call launches or raises.
 On the card one call is four launches on the current stream, the staged
 algorithm of the source's header: C·Bᵀ per (b, chunk), each chunk's state
 contribution per (b, h, chunk), the state pass per (b, h), and y per (b, h,
-chunk, 64-row block).  The wrapper allocates their scratch with
-``torch.empty`` (:func:`scratch_shapes`): at zamba2_7b's layer (B 1,
-S 8 192, H 112, N = P = 64, chunk 256) 8.4 MB of C·Bᵀ, 3.7 MB of cumulative
-sums and 58.7 MB of per-chunk states.  ``launches["ssm_scan"]`` counts one
+chunk, 64-row block); C·Bᵀ is formed once per (b, group, chunk).  The
+wrapper allocates their scratch with ``torch.empty``
+(:func:`scratch_shapes`): at zamba2_7b's layer (B 1, S 8 192, H 112,
+N = P = 64, chunk 256, G 1) 8.4 MB of C·Bᵀ, 3.7 MB of cumulative sums and
+58.7 MB of per-chunk states.  ``launches["ssm_scan"]`` counts one
 per call, whatever the number of kernels it launched.
 """
 
@@ -79,7 +82,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("ssm_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ssm_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                 i, i, i, i, i, i, i, p]
+                                 i, i, i, i, i, i, i, i, p]
     lib.ssm_scan_fwd.restype = i
     lib.ssm_scan_max_chunk.restype = i
     if lib.ssm_scan_max_chunk() != MAX_CHUNK:
@@ -89,16 +92,20 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _shapes(x, a, Bm, Cm) -> Tuple[int, int, int, int, int]:
+def _shapes(x, a, Bm, Cm) -> Tuple[int, int, int, int, int, int]:
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     Bt, S, H, P = x.shape
     if tuple(a.shape) != (Bt, S, H):
         raise ValueError(f"a must be {(Bt, S, H)}, got {tuple(a.shape)}")
-    if Bm.dim() != 3 or tuple(Bm.shape[:2]) != (Bt, S) \
+    if Bm.dim() not in (3, 4) or tuple(Bm.shape[:2]) != (Bt, S) \
             or tuple(Cm.shape) != tuple(Bm.shape):
-        raise ValueError(f"Bm/Cm must be ({Bt}, {S}, N), got "
-                         f"{tuple(Bm.shape)} and {tuple(Cm.shape)}")
+        raise ValueError(f"Bm/Cm must be ({Bt}, {S}, N) or ({Bt}, {S}, G, "
+                         f"N), got {tuple(Bm.shape)} and "
+                         f"{tuple(Cm.shape)}")
+    G = Bm.shape[2] if Bm.dim() == 4 else 1
+    if G < 1 or H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups")
     if x.dtype != torch.float32 or a.dtype != torch.float32:
         raise ValueError(f"x and a must be fp32, got {x.dtype}, {a.dtype}")
     if Bm.dtype not in _BC_DTYPES or Cm.dtype != Bm.dtype:
@@ -110,16 +117,17 @@ def _shapes(x, a, Bm, Cm) -> Tuple[int, int, int, int, int]:
     if min(Bt, S, H, P, Bm.shape[-1]) < 1:
         raise ValueError(f"empty operand: x {tuple(x.shape)}, Bm "
                          f"{tuple(Bm.shape)}")
-    return Bt, S, H, P, Bm.shape[-1]
+    return Bt, S, H, P, Bm.shape[-1], G
 
 
-def scratch_shapes(Bt: int, S: int, H: int, P: int, N: int,
-                   Q: int) -> Tuple[Tuple[int, ...], ...]:
-    """The kernel's fp32 scratch: C·Bᵀ (B, nc, Q, ldq), the cumulative
+def scratch_shapes(Bt: int, S: int, H: int, P: int, N: int, Q: int,
+                   G: int = 1) -> Tuple[Tuple[int, ...], ...]:
+    """The kernel's fp32 scratch: C·Bᵀ (B, G, nc, Q, ldq), the cumulative
     sums (B, H, nc, Q) and the per-chunk states (B, nc, H, N, P), nc =
     ⌈S / Q⌉, ldq = Q rounded up to a multiple of 4 (16-byte rows)."""
     nc = -(-S // Q)
-    return (Bt, nc, Q, -(-Q // 4) * 4), (Bt, H, nc, Q), (Bt, nc, H, N, P)
+    return ((Bt, G, nc, Q, -(-Q // 4) * 4), (Bt, H, nc, Q),
+            (Bt, nc, H, N, P))
 
 
 def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
@@ -127,7 +135,7 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan from a zero state; operands and results as in the
     module docstring."""
-    Bt, S, H, P, N = _shapes(x, a, Bm, Cm)
+    Bt, S, H, P, N, G = _shapes(x, a, Bm, Cm)
     if chunk < 1:
         raise ValueError(f"chunk = {chunk}")
     dev = x.device
@@ -149,16 +157,18 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     y = torch.empty((Bt, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=dev)
     cb, cum, st = (torch.empty(shape, dtype=torch.float32, device=dev)
-                   for shape in scratch_shapes(Bt, S, H, P, N, Q))
+                   for shape in scratch_shapes(Bt, S, H, P, N, Q, G))
+    grouped = Bm.dim() == 4
     strides = (x.stride(0), x.stride(1), x.stride(2),
                a.stride(0), a.stride(1), a.stride(2),
-               Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
+               Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+               Bm.stride(2) if grouped else 0, Cm.stride(2) if grouped else 0)
     lib = _library()
     err = lib.ssm_scan_fwd(
         x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         y.data_ptr(), state.data_ptr(), cb.data_ptr(), cum.data_ptr(),
-        st.data_ptr(), (ctypes.c_longlong * 10)(*strides), Bt, S, H, P, N, Q,
-        _BC_DTYPES[Bm.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        st.data_ptr(), (ctypes.c_longlong * 12)(*strides), Bt, S, H, P, N, Q,
+        G, _BC_DTYPES[Bm.dtype], torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(lib, "ssm_scan", err, "ssm_scan")
     launches["ssm_scan"] += 1
     return y, state
@@ -172,7 +182,22 @@ def ssm_scan_plain(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     in fp32, vectorised over batch and heads, from ``init_state`` (zeros
     when None; (B, H, N, P)).  Returns (y in x's dtype, final state fp32).
     Also the port's ``models.ssm.ssd_chunked``: the reference's XLA path
-    computes the same chunked algorithm."""
+    computes the same chunked algorithm.  Grouped B / C ((B, S, G, N))
+    run the loop once per group over its H / G heads; G = 1 is the
+    ungrouped loop itself."""
+    if Bm.dim() == 4:
+        G = Bm.shape[2]
+        if G == 1:
+            return ssm_scan_plain(x, a, Bm[:, :, 0], Cm[:, :, 0],
+                                  chunk=chunk, init_state=init_state)
+        hg = x.shape[2] // G
+        parts = [ssm_scan_plain(
+            x[:, :, g * hg:(g + 1) * hg], a[..., g * hg:(g + 1) * hg],
+            Bm[:, :, g], Cm[:, :, g], chunk=chunk,
+            init_state=None if init_state is None
+            else init_state[:, g * hg:(g + 1) * hg]) for g in range(G)]
+        return (torch.cat([y for y, _ in parts], dim=2),
+                torch.cat([st for _, st in parts], dim=1))
     Bt, S, H, P = x.shape
     N = Bm.shape[-1]
     f32 = torch.float32

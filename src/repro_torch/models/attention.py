@@ -101,13 +101,15 @@ def output_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0,
                     q_positions: Optional[torch.Tensor] = None,
-                    k_positions: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """q: (B,Sq,H,Dh) k/v: (B,Sk,KV,Dh). Returns (B,Sq,H,Dh)."""
+                    k_positions: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Sq,H,Dh) k/v: (B,Sk,KV,Dh). Returns (B,Sq,H,Dh).  ``scale``
+    multiplies q·k (1/√Dh when None)."""
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    scale = 1.0 / np.sqrt(Dh)
+    if scale is None:
+        scale = 1.0 / np.sqrt(Dh)
     qg = q.reshape(B, Sq, KV, G, Dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
                      k.to(torch.float32)) * scale
@@ -133,12 +135,14 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: int = 0, q_chunk: int = 1024,
                       kv_chunk: int = 1024,
-                      unroll: bool = False) -> torch.Tensor:
+                      unroll: bool = False,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Blockwise attention: a loop over Q chunks, and inside it over KV
     chunks in order.  Equivalent to naive_attention for self-attention with
     aligned positions.  ``unroll`` skips the fully masked KV chunks (the
     reference skips them only in its unrolled roofline probe; otherwise
-    every chunk is visited)."""
+    every chunk is visited).  ``scale`` multiplies q·k (1/√Dh when
+    None)."""
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -151,7 +155,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qp = pad(q, (0, 0, 0, 0, 0, pq))
     kp_ = pad(k, (0, 0, 0, 0, 0, pk))
     vp = pad(v, (0, 0, 0, 0, 0, pk))
-    scale = 1.0 / np.sqrt(Dh)
+    if scale is None:
+        scale = 1.0 / np.sqrt(Dh)
     dev, f32, bf16 = q.device, torch.float32, torch.bfloat16
 
     qb = qp.reshape(B, nq, q_chunk, KV, G, Dh).permute(1, 0, 3, 4, 2, 5)
@@ -205,19 +210,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_len, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, 1, H, Dh); cache_k/v: (B, C, KV, Dh); cache_len: () or (B,).
 
     Full-attention models: C = max seq, positions [0, cache_len) are valid.
     Sliding-window models: C = window (ring buffer) and all slots < min(len, C)
     are valid (ring order does not matter for attention, which is a set
     operation over (k, v) pairs — RoPE was already applied at insert time).
-    Per-sequence ``cache_len`` supports continuous batching.
+    Per-sequence ``cache_len`` supports continuous batching.  ``scale``
+    multiplies q·k (1/√Dh when None).
     """
     B, _, H, Dh = q.shape
     C, KV = cache_k.shape[1], cache_k.shape[2]
     G = H // KV
-    scale = 1.0 / np.sqrt(Dh)
+    if scale is None:
+        scale = 1.0 / np.sqrt(Dh)
     qg = q.reshape(B, KV, G, Dh)
     s = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
                      cache_k.to(torch.float32)) * scale

@@ -31,6 +31,10 @@ Modality frontends are stubs, as in the reference: an audio model
 (internvl2) precomputed patch embeddings ``patches`` (B, P, M) prepended to
 its token embeddings, each through the learned ``frontend_proj`` (M × M).
 An encoder-only model has no decode step (``config.validate_pairing``).
+
+A published Zamba2 (``config.HybridConfig``) is a list of layers, not a
+repeating unit: ``init_params``, ``model_forward``, ``init_caches`` and
+``model_decode_step`` hand it to ``models/hybrid.py``.
 """
 
 from __future__ import annotations
@@ -41,10 +45,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig, RunConfig
+from repro_torch.config import HybridConfig, ModelConfig, RunConfig
 from repro_torch.core.distributed import check_trainable
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import hybrid
 from repro_torch.models.layers import (dtype_of, embed, init_embedding,
                                        init_lm_head, init_rms_norm, lm_head,
                                        normal, rms_norm,
@@ -75,6 +80,8 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
     """The parameter tree drawn from ``gen`` on ``device`` as given (no
     card check; ``device="meta"`` with ``gen=None`` gives shapes and dtypes
     only)."""
+    if isinstance(cfg, HybridConfig):
+        return hybrid.init_params(cfg, gen, device)
     dtype = dtype_of(cfg.dtype)
     lead = (cfg.n_units,)
     params = {
@@ -132,6 +139,8 @@ def model_forward(cfg: ModelConfig, run: RunConfig, params: dict,
                   batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward.  Returns (logits fp32 (B,S,V), aux)."""
+    if isinstance(cfg, HybridConfig):
+        return hybrid.forward(cfg, run, params, batch)
     x = embed_inputs(cfg, params, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
@@ -198,6 +207,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     """Stacked (n_units leading axis) per-block caches: one real
     allocation per leaf, so no two units share storage."""
     dev = resolve_device(device)
+    if isinstance(cfg, HybridConfig):
+        return hybrid.init_caches(cfg, batch, max_len, dev)
     dtype = dtype_of(cfg.dtype)
     return {f"block_{i}": B.init_block_cache(bt, cfg, batch, max_len, dtype,
                                              dev, (cfg.n_units,))
@@ -210,10 +221,12 @@ def model_decode_step(cfg: ModelConfig, run: RunConfig, params: dict,
     """One decode step.  token: (B, 1) int; position: 0-dim (aligned
     batch) or (B,) int tensor (an int is moved to the device).  Writes
     ``caches`` in place; returns (logits (B, 1, V) fp32, caches)."""
-    x = embed(token, params["embed"])
     if not torch.is_tensor(position):
         position = torch.as_tensor(position, dtype=torch.int32,
-                                   device=x.device)
+                                   device=token.device)
+    if isinstance(cfg, HybridConfig):
+        return hybrid.decode_step(cfg, run, params, token, position, caches)
+    x = embed(token, params["embed"])
     shared = params.get("shared")
     for u in range(cfg.n_units):
         unit_params = _unit(params["units"], u)

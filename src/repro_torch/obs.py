@@ -14,7 +14,11 @@ lands in the profiler's trace as a ``user_annotation`` on the same timeline
 as the device's kernels, and keeps a record in memory: its name, its id,
 its parent's id, the id of the outermost ``run`` span it lies in, its start
 and end on ``time.perf_counter_ns``, and the counters' changes over it.
-While it is off a span does nothing else and keeps nothing.
+While it is off a span does nothing else and keeps nothing.  While it
+records, a span also records a CUDA event on the current stream at each
+end (where CUDA is in use): :func:`device_seconds` gives the device's time
+between them, so a metric can read the device time of work the host
+enqueued far ahead of it.
 
 Counters are always on: :func:`count` adds to a named counter, and
 :func:`counter_group` hands a module a dict of counters that this registry
@@ -103,11 +107,17 @@ class span:
         _open.append(rec)
         self._rec = rec
         self._before = counters()
+        if torch.cuda.is_initialized():
+            rec["ev0"] = torch.cuda.Event(enable_timing=True)
+            rec["ev0"].record()
         rec["t0_ns"] = time.perf_counter_ns()
 
     def _end(self) -> None:
         rec, self._rec = self._rec, None
         rec["t1_ns"] = time.perf_counter_ns()
+        if "ev0" in rec:
+            rec["ev1"] = torch.cuda.Event(enable_timing=True)
+            rec["ev1"].record()
         before = self._before
         rec["counts"] = {k: n - before.get(k, 0)
                          for k, n in counters().items()
@@ -123,6 +133,15 @@ def records() -> List[dict]:
     """The records kept since the last outermost ``run`` span started, in
     the order their spans ended."""
     return list(_records)
+
+
+def device_seconds(rec: dict):
+    """Seconds on the device between a span's two events (waits for the
+    second), or None for a record without them (no CUDA in use)."""
+    if "ev1" not in rec:
+        return None
+    rec["ev1"].synchronize()
+    return rec["ev0"].elapsed_time(rec["ev1"]) * 1e-3
 
 
 def last_run() -> List[dict]:

@@ -11,7 +11,8 @@ on top of it.
 Caches are written in place (``models/attention.py``): a state returned by
 ``prefill`` shares its caches with the state it was given.  The whole path
 runs under ``torch.inference_mode()``; no step reads a device value on the
-host except sampling's result.
+host except sampling's result.  ``prefill_step`` is the span ``prefill``
+(on the device's clock too), counting the batch's ``tokens``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.config import ModelConfig, RunConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import init_caches, model_decode_step, model_forward
@@ -68,7 +70,9 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: dict,
 def prefill_step(cfg: ModelConfig, run: RunConfig, params: dict,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward — what the prefill_32k dry-run shape lowers."""
-    logits, _ = model_forward(cfg, run, params, batch)
+    with obs.span("prefill"):
+        obs.count("tokens", batch["tokens"].numel())
+        logits, _ = model_forward(cfg, run, params, batch)
     return logits
 
 
