@@ -128,9 +128,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    and 5′ (``time_zamba2_instruct``): Zamba2-7B-Instruct's layer at the
    ``zamba2_7b.prefill`` cell's shapes, the sm90 kernel at head 224 and
    ``ssm_scan`` at 2 B / C groups, each held to its plain version and
-   timed, then one prefill of the published model with its launches
-   counted (13 sm90, 81 ``ssm_scan``); two more rows of the ``kernels``
-   line.
+   timed; row 7 (``time_mamba_glue``): the Mamba2 layer's prologue and
+   epilogue kernels there, the prologue bitwise its plain version and the
+   epilogue within one bf16 ulp, each timed beside it; then one prefill of
+   the published model with its launches counted (13 sm90, 81 each of
+   ``ssm_scan``, ``mamba_in``, ``mamba_out``); four more rows of the
+   ``kernels`` line.
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
    ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
@@ -1978,7 +1981,7 @@ def wkv_details(ops, chunk, ms, dev):
 
 
 def time_zamba2_instruct(dev):
-    """Rows 4″ and 5′: a layer of Zamba2-7B-Instruct
+    """Rows 4″, 5′ and 7: a layer of Zamba2-7B-Instruct
     (``configs/zamba2_7b_instruct.py``) at the ``zamba2_7b.prefill`` cell's
     shapes.  The sm90 kernel at head 224 (B 8, S 4 096, 32 heads, causal,
     the model's scale (224/2)^-½) and ``ssm_scan`` with B / C in 2 groups
@@ -1989,14 +1992,16 @@ def time_zamba2_instruct(dev):
     ``portbench/reference/prefill_cost.py``.  Then one prefill of the
     published model at full width and depth (B 1, S 4 096, weights drawn on
     the card) with the launch counters zeroed just before it: one sm90
-    launch per hybrid layer (13), one ``ssm_scan`` per layer (81).  Returns
-    the two rows of the ``kernels`` line."""
+    launch per hybrid layer (13), one ``ssm_scan``, ``mamba_in`` and
+    ``mamba_out`` per layer (81 each).  Row 7 is :func:`time_mamba_glue`'s.
+    Returns the four rows of the ``kernels`` line."""
     import torch
     import torch.nn.functional as F
     from portbench.reference import prefill_cost as pc
     from repro_torch.config import RunConfig
     from repro_torch.configs import zamba2_7b_instruct as zi
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_glue as mg
     from repro_torch.kernels import ssm_scan as sk
     from repro_torch.models import init_model
     from repro_torch.serve.engine import prefill_step
@@ -2060,6 +2065,7 @@ def time_zamba2_instruct(dev):
         f"it); max |kernel - plain| {err}")
     del x, a, Bm, Cm
     torch.cuda.empty_cache()
+    glue = time_mamba_glue(cfg, B, S, dev)
 
     params = init_model(cfg, 28, device=dev)
     toks = torch.randint(0, cfg.vocab_size, (1, S), device=dev,
@@ -2067,17 +2073,19 @@ def time_zamba2_instruct(dev):
                              28))
     fa.reset_launches()
     sk.reset_launches()
+    mg.reset_launches()
     with torch.inference_mode():
         logits = prefill_step(cfg, RunConfig(attn_impl="pallas",
                                              use_pallas=True), params,
                               {"tokens": toks})
     counts = {"flash_sm90": fa.launches_by_path["sm90"],
-              "ssm_scan": sk.launches["ssm_scan"]}
+              "ssm_scan": sk.launches["ssm_scan"], **mg.launches}
     finite = bool(torch.isfinite(logits).all())
     del params, logits
     torch.cuda.empty_cache()
     want = {"flash_sm90": len(cfg.hybrid_layer_ids),
-            "ssm_scan": cfg.n_layers}
+            "ssm_scan": cfg.n_layers, "mamba_in": cfg.n_layers,
+            "mamba_out": cfg.n_layers}
     log(f"  one prefill of the published model (B 1, S {S}): launches "
         f"{counts} (expected {want}), logits finite: {finite}")
     if counts != want or not finite:
@@ -2085,7 +2093,108 @@ def time_zamba2_instruct(dev):
                              f"{counts}, expected {want}; finite {finite}")
     flash["launches"] = counts["flash_sm90"]
     scan["launches"] = counts["ssm_scan"]
-    return {"flash_attention_d224": flash, "ssm_scan_g2": scan}
+    for name in glue:
+        glue[name]["launches"] = counts[name]
+    return {"flash_attention_d224": flash, "ssm_scan_g2": scan, **glue}
+
+
+def glue_inputs(cfg, B, S, seed, dev):
+    """One Mamba2 layer's operands of the glue kernels at ``cfg``'s widths,
+    bf16 as the model passes them: the fused projection's z, x B C and dt
+    column views of one (B, S, Din + C + H) tensor (dt about softplus's
+    threshold 20 at every 97th position), the layer's convolution,
+    dt_bias and A_log as ``init_params`` draws them but conv_b,
+    gate_norm and D random, and the scan's y."""
+    import torch
+    from repro_torch.models import hybrid
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Din, H, P, _, _, C = hybrid._mamba_widths(cfg)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    zxbcdt = randn(B, S, Din + C + H)
+    zxbcdt[:, ::97, Din + C:] += 25.0
+    zxbcdt = zxbcdt.to(torch.bfloat16)
+    p = hybrid._init_layer(gen, cfg, False, torch.bfloat16, dev)
+    return dict(
+        z=zxbcdt[..., :Din], xbc=zxbcdt[..., Din:Din + C],
+        dt=zxbcdt[..., Din + C:], conv_w=p["conv_w"],
+        conv_b=(randn(C) * 0.1).to(torch.bfloat16), dt_bias=p["dt_bias"],
+        A_log=p["A_log"], D=randn(H), y=randn(B, S, H, P),
+        gate_norm=(1.0 + 0.1 * randn(Din)).to(torch.bfloat16))
+
+
+def bf16_ulp_gap(got, want):
+    """(elements of ``got`` more than one bf16 ulp of the larger of the
+    two from ``want``, the share of elements that differ at all)."""
+    import torch
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(
+        torch.maximum(g.abs(), w.abs()))[1] - 8)
+    diff = (g - w).abs()
+    return int((diff > ulp).sum()), float((diff > 0).float().mean())
+
+
+def time_mamba_glue(cfg, B, S, dev):
+    """Row 7: the Mamba2 layer's prologue and epilogue kernels
+    (``kernels/mamba_glue.py``) at ``cfg``'s layer (B, S), each held to its
+    plain version — the prologue bitwise, the epilogue within one bf16 ulp
+    on at most 1e-3 of its elements — and timed beside it; the bound is
+    each kernel's least traffic at 3.35 TB/s."""
+    import torch
+    from repro_torch.kernels import mamba_glue as mg
+    g = glue_inputs(cfg, B, S, 29, dev)
+    P, G = cfg.ssm_head_dim, cfg.ssm_groups
+    H, C = g["dt"].shape[-1], g["xbc"].shape[-1]
+
+    def pro():
+        return mg.mamba_in(g["xbc"], g["dt"], g["conv_w"], g["conv_b"],
+                           g["dt_bias"], g["A_log"], head_dim=P)
+
+    def pro_plain():
+        return mg.mamba_in_plain(g["xbc"], g["dt"], g["conv_w"],
+                                 g["conv_b"], g["dt_bias"], g["A_log"],
+                                 head_dim=P)
+    got, want = pro(), pro_plain()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("x B C", "xdt", "a"), got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            diff = float((a.float() - b.float()).abs().max())
+            raise AssertionError(f"mamba_in's {name}: not bitwise the plain "
+                                 f"version, max |diff| {diff}")
+    xs = got[0][..., :H * P].unflatten(-1, (H, P))
+    del got, want
+
+    def epi():
+        return mg.mamba_out(g["y"], xs, g["z"], g["D"], g["gate_norm"],
+                            groups=G, eps=cfg.norm_eps)
+
+    def epi_plain():
+        return mg.mamba_out_plain(g["y"], xs, g["z"], g["D"], g["gate_norm"],
+                                  groups=G, eps=cfg.norm_eps)
+    out, plain = epi(), epi_plain()
+    over, share = bf16_ulp_gap(out, plain)
+    err = float((out.float() - plain.float()).abs().max())
+    del out, plain
+    if over or share > 1e-3:
+        raise AssertionError(f"mamba_out: {over} elements over one bf16 ulp "
+                             f"of the plain version, {share} differ")
+    rows = {}
+    for name, fn, plain, nbytes, err in (
+            ("mamba_in", pro, pro_plain, mg.in_bytes(B, S, C, H, P), 0.0),
+            ("mamba_out", epi, epi_plain, mg.out_bytes(B, S, H, P), err)):
+        rows[name] = {"ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 5),
+                      "library_ms": None,
+                      "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes", "max_abs_err": err}
+        r = rows[name]
+        log(f"  {name} B={B} S={S} H={H} P={P} C={C} G={G} bf16: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms by {nbytes / 1e9:.3f} GB, "
+            f"{r['bound_ms'] / r['ms']:.3f} of it)")
+    log(f"  mamba_in bitwise the plain version; mamba_out differs from it "
+        f"on {share:.2e} of its elements, none by more than one bf16 ulp")
+    return rows
 
 
 def time_scans(dev):
@@ -4020,7 +4129,7 @@ def main() -> int:
         t_flash = time_flash(dev, 8192)
     time_flash(dev, 8192, H=32, KV=32, D=112)    # zamba2_7b's attention
     t_ssm, t_wkv = time_scans(dev)
-    t_zamba2 = time_zamba2_instruct(dev)    # rows 4″ and 5′
+    t_zamba2 = time_zamba2_instruct(dev)    # rows 4″, 5′ and 7
     log(f"  phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # phase 12's CPU twins run beside the card from here on (phases 8-12),
@@ -4112,7 +4221,10 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:123"),
             ("ssm_scan_g2", "src/repro_torch/kernels/csrc/ssm_scan.cu",
-             "src/repro/kernels/ssm_scan.py:85")):
+             "src/repro/kernels/ssm_scan.py:85"),
+            ("mamba_in", "src/repro_torch/kernels/csrc/mamba_glue.cu", None),
+            ("mamba_out", "src/repro_torch/kernels/csrc/mamba_glue.cu",
+             None)):
         t = t_zamba2[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, **t})

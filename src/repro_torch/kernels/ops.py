@@ -6,8 +6,8 @@ The reference jit-compiles each wrapper and derives Pallas' interpret mode
 from the backend.  Here the device of the operands decides: a CUDA tensor
 launches the CUDA kernel, a CPU tensor runs its plain PyTorch version.
 
-The flash, ssm and wkv6 kernels have no backward (neither have the
-reference's Pallas kernels: ``jax.grad`` through them fails).  Their
+The flash, ssm, Mamba2 glue and wkv6 kernels have no backward (neither
+have the reference's Pallas kernels: ``jax.grad`` through them fails).  Their
 outputs are written by a foreign launch into fresh buffers, so autograd
 would see them as constants and the attention, mamba and rwkv weights
 would silently get no gradient.  So these wrappers raise when autograd is
@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_glue as _mg
 from repro_torch.kernels import ps_update as _ps
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import wkv6 as _wkv
@@ -64,6 +65,21 @@ def ssm_scan(x, a, Bm, Cm, *, chunk: int = _ssm.DEFAULT_CHUNK):
     ``ssm_scan.ssm_scan``)."""
     _no_graph("ssm_scan", x, a, Bm, Cm)
     return _ssm.ssm_scan(x, a, Bm, Cm, chunk=chunk)
+
+
+def mamba_in(xbc, dt, conv_w, conv_b, dt_bias, A_log, *, head_dim: int):
+    """The Mamba2 layer's prologue: convolved x B C, xdt and a for
+    ``ssm_scan`` (see ``mamba_glue.mamba_in``)."""
+    _no_graph("mamba_in", xbc, dt, conv_w, conv_b, dt_bias, A_log)
+    return _mg.mamba_in(xbc, dt, conv_w, conv_b, dt_bias, A_log,
+                        head_dim=head_dim)
+
+
+def mamba_out(y, xs, z, D, gate_norm, *, groups: int, eps: float):
+    """The Mamba2 layer's epilogue: the skip, the gate and the grouped
+    RMSNorm (see ``mamba_glue.mamba_out``)."""
+    _no_graph("mamba_out", y, xs, z, D, gate_norm)
+    return _mg.mamba_out(y, xs, z, D, gate_norm, groups=groups, eps=eps)
 
 
 def wkv6(r, k, v, w, u, *, chunk: int = _wkv.DEFAULT_CHUNK,

@@ -30,9 +30,11 @@ fp32 whatever the model dtype.  Caches: ``layers.<i>`` the SSM state
 hybrid layer (the shared blocks share weights, never caches).
 
 The prefill runs ``kernels.ops.flash_attention`` (``attn_impl="pallas"``)
-and ``kernels.ops.ssm_scan`` (``use_pallas``) on the card, their plain
-versions otherwise; training goes through autograd on the plain path, each
-layer a ``torch.utils.checkpoint`` region under ``RunConfig.remat``.
+and, under ``use_pallas``, each Mamba2 layer's ``kernels.ops.mamba_in``,
+``ssm_scan`` and ``mamba_out`` (the convolution, gates and norm around the
+scan) on the card, their plain versions otherwise; training goes through
+autograd on the plain path, each layer a ``torch.utils.checkpoint`` region
+under ``RunConfig.remat``.
 Spans: ``shared_block`` around each shared-block call (on the device's
 clock too), counting ``shared_block.<k>``.
 """
@@ -48,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import obs
 from repro_torch.config import HybridConfig, RunConfig
+from repro_torch.kernels import mamba_glue
 from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_rope, dtype_of, embed,
@@ -143,12 +146,8 @@ def _gated_out(cfg: HybridConfig, p: dict, y: torch.Tensor,
                z: torch.Tensor, dtype) -> torch.Tensor:
     """RMSNorm(y · silu(z)) over groups of d_inner / G, then the out
     projection; y fp32 (…, Din)."""
-    G = cfg.ssm_groups
-    h = y * F.silu(z.to(torch.float32))
-    hg = h.unflatten(-1, (G, -1))
-    hg = hg * torch.rsqrt(torch.mean(hg * hg, dim=-1, keepdim=True)
-                          + cfg.norm_eps)
-    h = (hg.flatten(-2) * p["gate_norm"].to(torch.float32)).to(dtype)
+    h = mamba_glue.gated_norm_plain(y, z, p["gate_norm"], cfg.ssm_groups,
+                                    cfg.norm_eps, dtype)
     return torch.matmul(h, p["w_out"])
 
 
@@ -171,22 +170,22 @@ def _project(cfg: HybridConfig, p: dict, x: torch.Tensor):
 def mamba_forward(cfg: HybridConfig, p: dict, x: torch.Tensor,
                   use_pallas: bool = False) -> torch.Tensor:
     """One Mamba2 layer over a full sequence.  x: (B, S, M) normed."""
-    Bt, S, _ = x.shape
-    Din, H, P, _, _, _ = _mamba_widths(cfg)
+    Din, H, P, _, G, _ = _mamba_widths(cfg)
     z, xbc, dt = _project(cfg, p, x)
-    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :Din].unflatten(-1, (H, P))
-    Bm, Cm = _split_bc(cfg, xbc[..., Din:])
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])          # (B,S,H)
-    a = dt * -torch.exp(p["A_log"])
-    xdt = xs.to(torch.float32) * dt[..., None]
     if use_pallas:
         from repro_torch.kernels import ops as kops
-        y, _ = kops.ssm_scan(xdt, a, Bm, Cm, chunk=cfg.ssm_chunk)
+        glue_in, scan, glue_out = kops.mamba_in, kops.ssm_scan, \
+            kops.mamba_out
     else:
-        y, _ = ssm_scan_plain(xdt, a, Bm, Cm, chunk=cfg.ssm_chunk)
-    y = y + xs.to(torch.float32) * p["D"][:, None]
-    return _gated_out(cfg, p, y.reshape(Bt, S, Din), z, x.dtype)
+        glue_in, scan, glue_out = mamba_glue.mamba_in_plain, \
+            ssm_scan_plain, mamba_glue.mamba_out_plain
+    xbc, xdt, a = glue_in(xbc, dt, p["conv_w"], p["conv_b"], p["dt_bias"],
+                          p["A_log"], head_dim=P)
+    Bm, Cm = _split_bc(cfg, xbc[..., Din:])
+    y, _ = scan(xdt, a, Bm, Cm, chunk=cfg.ssm_chunk)
+    h = glue_out(y, xbc[..., :Din].unflatten(-1, (H, P)), z, p["D"],
+                 p["gate_norm"], groups=G, eps=cfg.norm_eps)
+    return torch.matmul(h, p["w_out"])
 
 
 def mamba_step(cfg: HybridConfig, p: dict, x: torch.Tensor,

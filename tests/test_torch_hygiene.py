@@ -90,11 +90,11 @@ def test_port_file_list_is_complete():
                      "experiments/cells/cnn_fig5.py", "models/moe.py",
                      "launch/specs.py", "launch/dryrun.py",
                      "launch/report.py", "launch/dryrun_campaign.py",
-                     "launch/campaign.py"):
+                     "launch/campaign.py", "kernels/mamba_glue.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",
-                   "ssm_scan.cu", "wkv6.cu"):
+                   "ssm_scan.cu", "wkv6.cu", "mamba_glue.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file()
 
 

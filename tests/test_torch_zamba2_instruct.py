@@ -17,11 +17,17 @@ shared blocks and two adapters run.
   above ``SMOKE_LIMIT``, which the bf16 program stays under (the cell's
   own readings at 81 layers are PERF.md §6's);
 * the flash kernels' plain version at head 224 and the model's scale; the
-  spans and counters of a prefill; the configuration's published count.
+  spans and counters of a prefill; the configuration's published count;
+* the Mamba2 layer's glue wrappers (``kernels/mamba_glue.py``) on CPU
+  tensors bitwise the chain ``models/hybrid.py`` ran before them, and the
+  layer through either path bitwise that layer; both wrappers refuse
+  autograd.
 
-On the card (``-m cuda``): the sm90 kernel at head 224 and ``ssm_scan`` at
-G 2 against their plain versions at the ``zamba2_7b.prefill`` cell's
-shapes.  The cell itself runs in ``portbench/tests/test_portbench_prefill.py``
+On the card (``-m cuda``): the sm90 kernel at head 224, ``ssm_scan`` at
+G 2 and the glue kernels (the prologue bitwise, the epilogue within one
+bf16 ulp) against their plain versions at the ``zamba2_7b.prefill``
+cell's shapes; one prefill of a ``SMOKE`` model counting the glue
+launches.  The cell itself runs in ``portbench/tests/test_portbench_prefill.py``
 (``test_cell_on_the_card``: correct, and its launches per prefill).
 """
 
@@ -34,14 +40,19 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch import configs, obs
 from repro_torch.config import RunConfig
 from repro_torch.configs import zamba2_7b_instruct as zi
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_glue as mg
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ssm_scan as sk
-from repro_torch.models import init_model, model_decode_step, model_loss
+from repro_torch.models import hybrid, init_model, model_decode_step, \
+    model_loss
 from repro_torch.models.attention import naive_attention
+from repro_torch.models.ssm import _causal_conv
 from repro_torch.serve import engine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -345,6 +356,104 @@ def test_prefill_spans_and_counts(fp32_model):
 
 
 # ---------------------------------------------------------------------------
+# the Mamba2 layer's glue around the scan
+# ---------------------------------------------------------------------------
+def _todays_layer(cfg, p, x):
+    """``hybrid.mamba_forward``'s plain path as written before the glue
+    kernels; returns (convolved x B C, xdt, a, the scan's y, the out
+    projection's input, the layer's output)."""
+    Bt, S, _ = x.shape
+    Din, H, P = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    zxbcdt = torch.matmul(x, p["w_in"])
+    C = Din + 2 * G * N
+    z, xbc, dt = (zxbcdt[..., :Din], zxbcdt[..., Din:Din + C],
+                  zxbcdt[..., Din + C:])
+    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs = xbc[..., :Din].unflatten(-1, (H, P))
+    bc = xbc[..., Din:]
+    Bm = bc[..., :G * N].unflatten(-1, (G, N))
+    Cm = bc[..., G * N:].unflatten(-1, (G, N))
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    a = dt * -torch.exp(p["A_log"])
+    xdt = xs.to(torch.float32) * dt[..., None]
+    y0, _ = sk.ssm_scan_plain(xdt, a, Bm, Cm, chunk=cfg.ssm_chunk)
+    y = y0 + xs.to(torch.float32) * p["D"][:, None]
+    h = y.reshape(Bt, S, Din) * F.silu(z.to(torch.float32))
+    hg = h.unflatten(-1, (G, -1))
+    hg = hg * torch.rsqrt(torch.mean(hg * hg, dim=-1, keepdim=True)
+                          + cfg.norm_eps)
+    h = (hg.flatten(-2) * p["gate_norm"].to(torch.float32)).to(x.dtype)
+    return xbc, xdt, a, y0, h, torch.matmul(h, p["w_out"])
+
+
+def _glue_layer(cfg, seed, device="cpu"):
+    """A Mamba2 layer of ``cfg`` in bf16 with random conv_b, D and
+    gate_norm, and head 0's dt_bias past softplus's threshold 20."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = hybrid._init_layer(gen, cfg, False, torch.bfloat16, device)
+    C, H, Din = p["conv_b"].shape[0], p["D"].shape[0], p["gate_norm"].shape[0]
+    p["conv_b"] = (torch.randn(C, generator=gen, device=device) * 0.1).to(
+        torch.bfloat16)
+    p["D"] = torch.randn(H, generator=gen, device=device)
+    p["gate_norm"] = (1 + 0.1 * torch.randn(Din, generator=gen,
+                                            device=device)).to(torch.bfloat16)
+    p["dt_bias"][0] = 30.0
+    return p, gen
+
+
+@pytest.mark.parametrize("G,S", [(1, 2), (2, 2), (1, 45), (2, 45)],
+                         ids=["g1_s2", "g2_s2", "g1_s45", "g2_s45"])
+def test_glue_is_todays_chain_on_cpu(G, S):
+    """S 2 is shorter than the convolution's K − 1; 45 is no multiple of
+    the kernels' tiles.  ``kops.mamba_in`` / ``mamba_out`` on CPU tensors,
+    fed the projection's views and the scan's y, equal the old chain
+    bitwise, and so does the layer through either path."""
+    cfg = dataclasses.replace(zi.SMOKE, ssm_groups=G)
+    p, gen = _glue_layer(cfg, 30 + G)
+    x = torch.randn(2, S, cfg.d_model, generator=gen).to(torch.bfloat16)
+    want = _todays_layer(cfg, p, x)
+    z, xbc, dt = hybrid._project(cfg, p, x)
+    Din, H, P = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_head_dim
+    got = kops.mamba_in(xbc, dt, p["conv_w"], p["conv_b"], p["dt_bias"],
+                        p["A_log"], head_dim=P)
+    got += (want[3], kops.mamba_out(
+        want[3], got[0][..., :Din].unflatten(-1, (H, P)), z, p["D"],
+        p["gate_norm"], groups=G, eps=cfg.norm_eps))
+    got += (hybrid.mamba_forward(cfg, p, x, use_pallas=False),
+            hybrid.mamba_forward(cfg, p, x, use_pallas=True))
+    want += (want[-1],)
+    names = ("x B C", "xdt", "a", "y", "h", "layer", "layer (kernels)")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert bool((want[2][..., 0] < -20).all())     # past the threshold
+
+
+@pytest.mark.parametrize("wrapper", ["mamba_in", "mamba_out"])
+def test_glue_wrappers_refuse_autograd(wrapper):
+    cfg = zi.SMOKE
+    p, gen = _glue_layer(cfg, 40)
+    x = torch.randn(1, 5, cfg.d_model, generator=gen).to(torch.bfloat16)
+    z, xbc, dt = hybrid._project(cfg, p, x)
+    Din, H, P = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_head_dim
+    xs = xbc[..., :Din].unflatten(-1, (H, P))
+    y = torch.randn(1, 5, H, P, generator=gen)
+    w = p["conv_w" if wrapper == "mamba_in" else "gate_norm"]
+
+    def call():
+        if wrapper == "mamba_in":
+            return kops.mamba_in(xbc, dt, p["conv_w"], p["conv_b"],
+                                 p["dt_bias"], p["A_log"], head_dim=P)
+        return kops.mamba_out(y, xs, z, p["D"], p["gate_norm"],
+                              groups=cfg.ssm_groups, eps=cfg.norm_eps)
+    w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():
+        call()
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -396,3 +505,67 @@ def test_ssm_scan_two_groups_matches_plain_on_card(cuda):
     tol = 1e-5 + 2.0 ** -20 * span
     assert float((y - py).abs().max()) <= tol * float(py.abs().max())
     assert float((st - pst).abs().max()) <= tol * float(pst.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,G,dtype", [
+    (8, 4096, 2, torch.bfloat16), (2, 45, 1, torch.bfloat16),
+    (3, 2, 2, torch.float32)], ids=["cell", "ragged", "short_fp32"])
+def test_mamba_glue_matches_plain_on_card(cuda, B, S, G, dtype):
+    """At the cell's layer (B 8, S 4 096, 112 heads, P = N = 64, G 2) and
+    at two small ones: the prologue's three outputs bitwise its plain
+    version's on the card; the epilogue within one bf16 ulp on at most
+    1e-3 of its elements (fp32: within 2⁻²¹ relative); one launch each."""
+    cfg = zi.CONFIG if S == 4096 else dataclasses.replace(
+        zi.SMOKE, ssm_groups=G)
+    p, gen = _glue_layer(cfg, 50 + G, cuda)
+    p = {k: v.to(dtype) if v.dtype == torch.bfloat16 else v
+         for k, v in p.items()}
+    Din, H, P = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_head_dim
+    C = Din + 2 * G * cfg.ssm_state
+    zxbcdt = torch.randn(B, S, Din + C + H, generator=gen,
+                         device=cuda).to(dtype)
+    z, xbc, dt = (zxbcdt[..., :Din], zxbcdt[..., Din:Din + C],
+                  zxbcdt[..., Din + C:])
+    args = (xbc, dt, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"])
+    mg.reset_launches()
+    got = mg.mamba_in(*args, head_dim=P)
+    assert mg.launches == {"mamba_in": 1, "mamba_out": 0}
+    want = mg.mamba_in_plain(*args, head_dim=P)
+    for name, g, w in zip(("x B C", "xdt", "a"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    xs = got[0][..., :Din].unflatten(-1, (H, P))
+    y = torch.randn(B, S, H, P, generator=gen, device=cuda)
+    out = mg.mamba_out(y, xs, z, p["D"], p["gate_norm"], groups=G,
+                       eps=cfg.norm_eps)
+    assert mg.launches == {"mamba_in": 1, "mamba_out": 1}
+    plain = mg.mamba_out_plain(y, xs, z, p["D"], p["gate_norm"], groups=G,
+                               eps=cfg.norm_eps)
+    assert out.dtype == plain.dtype == dtype
+    diff = (out.float() - plain.float()).abs()
+    if dtype == torch.float32:
+        assert bool((diff <= 2.0 ** -21 * plain.abs()).all())
+        return
+    big = torch.maximum(out.float().abs(), plain.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    assert int((diff > ulp).sum()) == 0
+    assert float((diff > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_smoke_prefill_launches_the_glue_on_card(cuda):
+    """One ``prefill_step`` of ``SMOKE`` at head dim 32 (``ssm_scan``'s
+    kernel takes P of 32, 64 or 128): one launch of each glue kernel and
+    of the scan per layer, and logits within ``SMOKE_LIMIT`` / 2 of the
+    plain path's on the card."""
+    cfg = dataclasses.replace(zi.SMOKE, ssm_head_dim=32)
+    params = init_model(cfg, 0, device=cuda)
+    tok = tokens(8, 2, 40).to(cuda)
+    mg.reset_launches()
+    sk.reset_launches()
+    got = engine.prefill_step(cfg, KERNELS, params, {"tokens": tok})
+    assert mg.launches == {"mamba_in": cfg.n_layers,
+                           "mamba_out": cfg.n_layers}
+    assert sk.launches["ssm_scan"] == cfg.n_layers
+    plain = engine.prefill_step(cfg, NAIVE, params, {"tokens": tok})
+    assert REF.logit_rms_gap(got, plain) < SMOKE_LIMIT / 2
