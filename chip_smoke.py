@@ -398,9 +398,9 @@ def steady_ms(fn, reps: int, windows: int = 3, most: int = 20) -> float:
     windows of ``reps`` calls (:func:`cuda_ms`) until the last ``windows``
     agree within 1 % (at most ``most`` windows), their median.  After a
     large free (phase 6's what-if lane, 46 GiB) the card streams ~15 %
-    slower for a while, a few windows long (``tools/update_probe.py
-    --whatif``); a fixed window would charge that to the kernel.  Logs the
-    first window when it took more than ``windows`` to settle."""
+    slower for a while, a few windows long (PERF.md §6 row 1); a fixed
+    window would charge that to the kernel.  Logs the first window when it
+    took more than ``windows`` to settle."""
     for _ in range(3):
         fn()
     times = []

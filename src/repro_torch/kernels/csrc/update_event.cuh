@@ -32,10 +32,10 @@
 // kernels/build.py::vec4; else V = 1, the ragged edge masked by the loop
 // bound), up to 64 blocks per SM, grid-stride.  Every warp reads 512 bytes
 // from each of c rows.  On one H100 it reaches 0.92 of the bytes bound at
-// D 10 M, on another 0.88 (tools/update_probe.py, which also times a
-// persistent bulk-copy pipeline of g through shared memory: within 1.4 %
-// of this schedule on two cards, 1.3-3.6 % ahead on a third, inside the
-// spread between runs, so it was not kept).
+// D 10 M, on another 0.88.  A persistent bulk-copy pipeline of g through
+// shared memory was within 1.4 % of this schedule on two cards and
+// 1.3-3.6 % ahead on a third, inside the spread between runs, so it was
+// not kept (PERF.md §6 row 1).
 //
 // coef / lrs (and ring_apply's idx) stay in device memory: the kernel reads
 // them, the host never does, so a launch is graph-capturable.

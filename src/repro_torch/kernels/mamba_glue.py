@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -190,16 +190,35 @@ def mamba_out(y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held against)
 # ---------------------------------------------------------------------------
+def causal_conv_plain(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      history: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv.  xc (B, S, D); w (K, D).  Returns the output
+    and the trailing K-1 inputs (decode cache).  The K products are summed
+    in the input dtype in the order i = 0…K−1, as the reference's Python
+    ``sum`` does."""
+    K = w.shape[0]
+    S = xc.shape[1]
+    if history is None:
+        history = torch.zeros((xc.shape[0], K - 1, xc.shape[-1]),
+                              dtype=xc.dtype, device=xc.device)
+    xin = torch.cat([history, xc], dim=1)
+    out = xin[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xin[:, i:i + S] * w[i]
+    out = F.silu((out + b).to(torch.float32)).to(xc.dtype)
+    return out, xin[:, -(K - 1):]
+
+
 def mamba_in_plain(xbc: torch.Tensor, dt: torch.Tensor, conv_w: torch.Tensor,
                    conv_b: torch.Tensor, dt_bias: torch.Tensor,
                    A_log: torch.Tensor, *, head_dim: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`mamba_in` in plain PyTorch: the convolution of
-    ``models.ssm._causal_conv`` (each product and partial sum in the input
+    :func:`causal_conv_plain` (each product and partial sum in the input
     dtype), then dt, a and xdt in fp32."""
-    from repro_torch.models.ssm import _causal_conv
     H = dt.shape[-1]
-    xbc, _ = _causal_conv(xbc, conv_w, conv_b)
+    xbc, _ = causal_conv_plain(xbc, conv_w, conv_b)
     xs = xbc[..., :H * head_dim].unflatten(-1, (H, head_dim))
     dt = F.softplus(dt.to(torch.float32) + dt_bias)          # (B,S,H)
     a = dt * -torch.exp(A_log)

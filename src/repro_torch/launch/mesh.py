@@ -15,6 +15,9 @@ device, so gloo carries the collectives on host tensors.
   rank and returns rank 0's value.  A rank that raises or dies fails the
   call with its traceback; a world that outlives ``timeout`` is killed and
   fails it too.
+* :func:`threads_per_process` is the share of the host's cores each of n
+  processes on it takes: every rank of an n-rank world sets its torch
+  threads to it.
 * :func:`make_sim_mesh`, called by every rank of a world, returns this
   rank's place on the ``ps × learner`` mesh (rank r = s·L + l) and its
   ``"ps"`` group (the S ranks of learner block l) and ``"learner"`` group
@@ -183,6 +186,12 @@ def make_sim_mesh(ps: int, learners: int) -> SimMesh:
     return _meshes[key]
 
 
+def threads_per_process(n: int) -> int:
+    """Torch intra-op threads for each of ``n`` processes that share this
+    host: an equal share of its cores, at least one."""
+    return max(1, (os.cpu_count() or 1) // n)
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -196,8 +205,10 @@ def _rank_main(rank: int, size: int, port: int, work: str, out: str,
     and leave."""
     global _world
     import torch.distributed as dist
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
     fn, args = torch.load(work, weights_only=False)
+    # after the load: importing fn's module may set a count of its own (a
+    # test module takes its test worker's share)
+    torch.set_num_threads(threads_per_process(size))
     dist.init_process_group(
         "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
         world_size=size, timeout=datetime.timedelta(seconds=timeout))

@@ -4,7 +4,8 @@
 Three implementations, selected by ``RunConfig.attn_impl`` (its three
 values are the reference's):
 
-* ``naive``   — materializes the full score matrix; the test oracle.
+* ``naive``   — materializes the full score matrix; the test oracle
+                (``kernels.ref.naive_attention``).
 * ``chunked`` — online softmax over KV chunks, one Q chunk at a time; the
                 plain PyTorch fallback (its P·V product takes bf16
                 probabilities and values with fp32 accumulation, as the
@@ -35,9 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, RunConfig
+from repro_torch.kernels.ref import NEG_INF, naive_attention
 from repro_torch.models.layers import Lead, apply_rope, normal, rms_norm
-
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -93,40 +93,6 @@ def output_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
     """einsum("bshd,hdm->bsm", o, w_o) as one matmul."""
     H, Dh, M = p["w_o"].shape
     return torch.matmul(o.flatten(-2), p["w_o"].reshape(H * Dh, M))
-
-
-# ---------------------------------------------------------------------------
-# Score-matrix (naive) implementation — the oracle
-# ---------------------------------------------------------------------------
-def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int = 0,
-                    q_positions: Optional[torch.Tensor] = None,
-                    k_positions: Optional[torch.Tensor] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,Sq,H,Dh) k/v: (B,Sk,KV,Dh). Returns (B,Sq,H,Dh).  ``scale``
-    multiplies q·k (1/√Dh when None)."""
-    B, Sq, H, Dh = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    if scale is None:
-        scale = 1.0 / np.sqrt(Dh)
-    qg = q.reshape(B, Sq, KV, G, Dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                     k.to(torch.float32)) * scale
-    dev = q.device
-    qp = (q_positions if q_positions is not None
-          else torch.arange(Sq, device=dev))[:, None]          # (Sq, 1)
-    kp = (k_positions if k_positions is not None
-          else torch.arange(Sk, device=dev))[None, :]          # (1, Sk)
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= kp <= qp
-    if window > 0:
-        mask &= kp > qp - window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
-    return o.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_rope, dtype_of, embed,
                                        init_embedding, init_lm_head,
                                        lm_head, normal, rms_norm)
-from repro_torch.models.ssm import _causal_conv
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +195,8 @@ def mamba_step(cfg: HybridConfig, p: dict, x: torch.Tensor,
     Din, H, P, N, G, _ = _mamba_widths(cfg)
     f32 = torch.float32
     z, xbc, dt = _project(cfg, p, x)
-    xbc, hist = _causal_conv(xbc, p["conv_w"], p["conv_b"], cache["conv"])
+    xbc, hist = mamba_glue.causal_conv_plain(xbc, p["conv_w"], p["conv_b"],
+                                             cache["conv"])
     xs = xbc[:, 0, :Din].reshape(Bt, H, P).to(f32)
     Bm, Cm = _split_bc(cfg, xbc[:, 0, Din:])
     Bh = Bm.to(f32).repeat_interleave(H // G, dim=1)              # (B,H,N)

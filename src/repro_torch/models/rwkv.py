@@ -9,12 +9,12 @@ Recurrence per head (key dim P_k = value dim P_v = P)::
 
 The prefill runs ``kernels.ops.wkv6`` (the CUDA kernel on the card) with
 ``RunConfig.use_pallas``; without it the exact recurrence
-(:func:`wkv_recurrent`, a loop over time) or, with ``RunConfig.unroll``,
-:func:`wkv_chunked` — the reference's roofline-probe path, whose chunked
-closed form is the kernel's: the port keeps one plain implementation of it,
-beside the kernel (``kernels.wkv6.wkv6_plain``).  Decode is one recurrence
-step in both packages (``_time_mix`` with ``use_pallas`` left False): no
-kernel.
+(``kernels.ref.wkv_recurrent``, a loop over time) or, with
+``RunConfig.unroll``, :func:`wkv_chunked` — the reference's roofline-probe
+path, whose chunked closed form is the kernel's: the port keeps one plain
+implementation of it, beside the kernel (``kernels.wkv6.wkv6_plain``).
+Decode is one recurrence step in both packages (``_time_mix`` with
+``use_pallas`` left False): no kernel.
 
 ``decay_w0`` and ``bonus_u`` are fp32 whatever the model dtype; the other
 leaves have the model dtype.  Decode writes the block's cache (``wkv``,
@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.ref import wkv_recurrent
 from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.models.layers import (Lead, init_sqrelu_ffn, normal,
                                        rms_norm, sqrelu_ffn)
@@ -81,29 +82,6 @@ def _token_shift(x: torch.Tensor,
 
 def _mix(x, xx, mu):
     return x + (xx - x) * mu
-
-
-def wkv_recurrent(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  w: torch.Tensor, u: torch.Tensor,
-                  init_state: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact recurrence, a loop over time.
-
-    r/k/v: (B, S, H, P); w: (B, S, H, P) log-decay (< 0); u: (H, P) bonus.
-    Returns (out (B,S,H,P) fp32, final state (B,H,P,P))."""
-    B, S, H, P = r.shape
-    f32 = torch.float32
-    rf, kf, vf, wf = (t.to(f32) for t in (r, k, v, w))
-    state = (torch.zeros((B, H, P, P), dtype=f32, device=r.device)
-             if init_state is None else init_state)
-    uu = u[None, :, :, None]
-    outs = []
-    for t in range(S):
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]     # key ⊗ value
-        outs.append(torch.einsum("bhp,bhpq->bhq", rf[:, t],
-                                 state + uu * kv))
-        state = torch.exp(wf[:, t])[..., None] * state + kv
-    return torch.stack(outs, dim=1), state
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

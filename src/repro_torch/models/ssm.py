@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.mamba_glue import causal_conv_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models.layers import Lead, normal, rms_norm
 
@@ -113,26 +114,6 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Full Mamba2 block
 # ---------------------------------------------------------------------------
-def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 history: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv.  xc (B, S, D); w (K, D).  Returns the output
-    and the trailing K-1 inputs (decode cache).  The K products are summed
-    in the input dtype in the order i = 0…K−1, as the reference's Python
-    ``sum`` does."""
-    K = w.shape[0]
-    S = xc.shape[1]
-    if history is None:
-        history = torch.zeros((xc.shape[0], K - 1, xc.shape[-1]),
-                              dtype=xc.dtype, device=xc.device)
-    xin = torch.cat([history, xc], dim=1)
-    out = xin[:, 0:S] * w[0]
-    for i in range(1, K):
-        out = out + xin[:, i:i + S] * w[i]
-    out = F.silu((out + b).to(torch.float32)).to(xc.dtype)
-    return out, xin[:, -(K - 1):]
-
-
 def _project(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, M) -> z (B,S,Din), xs (B,S,Din), BC (B,S,2N), dt (B,S,H)."""
     return (torch.matmul(x, p["w_z"]), torch.matmul(x, p["w_x"]),
@@ -154,8 +135,8 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
     Din, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
                     cfg.ssm_head_dim)
     z, xs, bc, dt = _project(cfg, p, x)
-    xs, _ = _causal_conv(xs, p["conv_x"], p["conv_bx"])
-    bc, _ = _causal_conv(bc, p["conv_bc"], p["conv_bbc"])
+    xs, _ = causal_conv_plain(xs, p["conv_x"], p["conv_bx"])
+    bc, _ = causal_conv_plain(bc, p["conv_bc"], p["conv_bbc"])
     xs = xs.reshape(Bt, S, H, P)
     Bm = bc[..., :N]
     Cm = bc[..., N:]
@@ -196,9 +177,10 @@ def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     Din, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads,
                     cfg.ssm_head_dim)
     z, xs, bc, dt = _project(cfg, p, x)
-    xs, conv_x = _causal_conv(xs, p["conv_x"], p["conv_bx"], cache["conv_x"])
-    bc, conv_bc = _causal_conv(bc, p["conv_bc"], p["conv_bbc"],
-                               cache["conv_bc"])
+    xs, conv_x = causal_conv_plain(xs, p["conv_x"], p["conv_bx"],
+                                   cache["conv_x"])
+    bc, conv_bc = causal_conv_plain(bc, p["conv_bc"], p["conv_bbc"],
+                                    cache["conv_bc"])
     xs = xs[:, 0].reshape(Bt, H, P)
     Bm = bc[:, 0, :N]
     Cm = bc[:, 0, N:]

@@ -18,6 +18,8 @@ Tests marked ``cuda`` hold the CUDA kernels against their plain versions on
 a card; they skip without one.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 import types
 

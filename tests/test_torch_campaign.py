@@ -28,6 +28,8 @@ reproduced in numpy (``data/threefry.py``): the random bits and the
 normals bitwise.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import json
 import math
 import os

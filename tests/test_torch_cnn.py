@@ -18,6 +18,8 @@ CPU at ``updates`` (default 40) — the basis of ``chip_smoke.py``'s
 ``CNN_SPREAD``, which holds the card's run against the CPU's.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,8 @@ full-scale ``CONFIG`` and the reduced ``SMOKE``: every ``ModelConfig``
 field and ``param_count()`` equal, exactly (host-side data, no rounding).
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 
 import pytest

@@ -12,6 +12,8 @@ weights carried across.  Tolerances as in the reference's tests: 1e-6
 1e-6 absolute.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

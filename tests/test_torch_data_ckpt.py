@@ -11,6 +11,8 @@
   same keys and step.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import json
 import os
 

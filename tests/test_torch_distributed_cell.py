@@ -11,6 +11,8 @@ the per-rank ring residency follows the reference's formula (K = 7 at the
 envelope's D: 56 000 000 / S bytes).
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import json
 from pathlib import Path
 

@@ -11,6 +11,8 @@ bit for bit (port against itself), and the grouped survivor weighting
 folds exactly the gradients the trace's masks predict.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 import types
 

@@ -16,6 +16,8 @@ is rounded once in each, and fp32 sums run in another order.  fp32: 2e-5
 absolute (3×TF32 products err by ~2⁻²¹ relative).
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import types
 
 import numpy as np

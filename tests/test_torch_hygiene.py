@@ -4,6 +4,9 @@
   of the reference package ``repro`` — not even its pure-numpy modules:
   the port keeps its own copies (an AST walk over every file, plus a fresh
   interpreter that imports the whole package and then looks for them).
+* Every ``tests/test_torch_*.py`` imports ``torch_cpu`` first (an AST
+  walk), and importing it in a fresh interpreter caps torch's threads at
+  the xdist worker's share of the CPU (``launch.mesh.threads_per_process``).
 * The entry points run on the card unless the caller asks for the CPU:
   without a card, ``driver.run`` / ``driver.execute`` / ``engine.replay``
   (and the legacy oracle: ``simulate``, the baselines, ``engine="legacy"``;
@@ -13,6 +16,8 @@
   ``compute``) called with no ``device=`` raise instead of quietly using
   the CPU.
 """
+
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
 
 import ast
 import os
@@ -114,6 +119,42 @@ def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_TESTS, ids=lambda p: p.name)
+def test_port_test_imports_its_cpu_share_first(path):
+    """Every port test file's first statement after its docstring is
+    ``import torch_cpu``, which caps torch's threads at the xdist worker's
+    share of the CPU."""
+    body = ast.parse(path.read_text(), filename=str(path)).body
+    first = body[1] if isinstance(body[0], ast.Expr) else body[0]
+    assert (isinstance(first, ast.Import)
+            and [a.name for a in first.names] == ["torch_cpu"]), path.name
+
+
+@pytest.mark.parametrize("workers", [None, "1", "6"])
+def test_torch_cpu_takes_the_worker_share(workers):
+    """In a fresh interpreter, importing ``torch_cpu`` under xdist's
+    worker count leaves torch the smaller of its default and
+    ``max(1, cpu_count // workers)`` threads; without xdist, its
+    default."""
+    code = ("import os, torch\n"
+            "default = torch.get_num_threads()\n"
+            "import torch_cpu\n"
+            "n = os.environ.get('PYTEST_XDIST_WORKER_COUNT')\n"
+            "share = max(1, os.cpu_count() // int(n)) if n else default\n"
+            "assert torch.get_num_threads() == min(default, share), "
+            "(torch.get_num_threads(), default, share)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    env.pop("PYTEST_XDIST_WORKER_COUNT", None)
+    if workers is not None:
+        env["PYTEST_XDIST_WORKER_COUNT"] = workers
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
 
 
 def test_fresh_interpreter_loads_no_jax_and_builds_nothing():

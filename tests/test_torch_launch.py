@@ -12,6 +12,8 @@ their modules are swapped for functions that return the bare spec — the
 reference's rules run unchanged.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import functools
 import json
 

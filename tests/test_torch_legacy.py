@@ -32,6 +32,8 @@ Tests marked ``cuda`` run the kernel on a card (``ps_apply`` ≡ its plain
 version, bitwise; a legacy run through the kernel) and skip without one.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import functools
 import types
 

@@ -17,6 +17,8 @@ a prefill routes in groups of up to 2 048 tokens, a decode step in one
 group of the batch's tokens, so capacities and drops differ by design.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 
 import jax

@@ -13,6 +13,8 @@
   plain version leaves it untouched.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import json
 
 import pytest

@@ -17,6 +17,8 @@ are in "ulps at scale": max |ref − port| ≤ N · spacing(max |ref|) in fp32.
   bound and the quantized row may differ by at most one bf16 rounding.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import functools
 import types
 

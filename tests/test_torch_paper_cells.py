@@ -30,6 +30,8 @@ of the replay and legacy cells at their default params — the basis of
 ``chip_smoke.py``'s phase 12 envelope tolerance.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import json
 import math
 import types

@@ -22,6 +22,8 @@ Tolerances, with their reasons:
   the worst cell).
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import types
 
 import numpy as np

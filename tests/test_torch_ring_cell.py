@@ -11,6 +11,8 @@
   stderr line.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import json
 from pathlib import Path
 

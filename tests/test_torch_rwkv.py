@@ -28,6 +28,8 @@ against its plain version on a card (output and final state within 1e-5 of
 their largest magnitudes plus the same decay term) and skip without one.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 import types
 

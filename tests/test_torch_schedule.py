@@ -9,6 +9,8 @@ rewritten.  Every ``ArrivalTrace`` array must therefore be ``array_equal``
 must carry the same fields.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 
 import numpy as np

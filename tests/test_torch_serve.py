@@ -18,6 +18,8 @@ completions are compared in fp32, where they are equal: in bf16 a logit
 rounding can flip an argmax between two near-equal candidates.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 
 import jax

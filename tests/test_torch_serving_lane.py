@@ -15,6 +15,8 @@ the reference package and against itself.
   test_torch_replay.py (test error within two of the 2 048 test samples).
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import types
 
 import numpy as np

@@ -29,6 +29,8 @@ runs once (at 1×1, against the reference), and ``shard_map``'s failure
 modes once each.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import types
 
 import numpy as np

@@ -7,7 +7,7 @@ numpy-seeded inputs.
   S (a ragged S with padding), N and chunk, at a decay whose chunk sums
   reach −1 500: exp(cum_i − cum_j) above the diagonal overflows there.
 * ``ssd_chunked`` from a nonzero state, ``ssd_decode_step`` and
-  ``_causal_conv`` with history; ``mamba_forward`` (``use_pallas`` True
+  ``kernels.mamba_glue.causal_conv_plain`` with history; ``mamba_forward`` (``use_pallas`` True
   and False) and ``mamba_decode`` on weights carried from the reference;
   the init's leaves (the fp32 ones in a bf16 model, ``dt_bias`` equal).
 
@@ -24,6 +24,8 @@ its plain version on a card (y and the final state within 1e-5 of their
 largest magnitudes plus the same decay term) and skip without one.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 import types
 
@@ -35,6 +37,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.experiments.carry import _tensor_from_numpy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as sk
+from repro_torch.kernels.mamba_glue import causal_conv_plain
 from repro_torch.models import ssm
 
 _T = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -266,9 +269,9 @@ def test_causal_conv_with_history(dtype, J):
         want, want_h = J.ssm._causal_conv(
             _j(xc, dtype), _j(w, dtype), _j(b, dtype),
             None if h is None else _j(h, dtype))
-        got, got_h = ssm._causal_conv(_t(xc, dtype), _t(w, dtype),
-                                      _t(b, dtype),
-                                      None if h is None else _t(h, dtype))
+        got, got_h = causal_conv_plain(_t(xc, dtype), _t(w, dtype),
+                                       _t(b, dtype),
+                                       None if h is None else _t(h, dtype))
         assert got.dtype == got_h.dtype == _T[dtype]
         np.testing.assert_array_equal(_np(got_h), _np(want_h))
         # bf16: XLA may keep the K-term sum in fp32 before rounding once

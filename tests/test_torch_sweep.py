@@ -15,6 +15,8 @@ own sequential replay.
   same specs as the reference's; ``replay_path`` on every record.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import types
 import warnings
 

@@ -18,6 +18,8 @@ replay (ROADMAP.md items 2, 4.5 and 4.2), against the reference package.
 * adamw (the stock pytree body) against the reference.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import types
 
 import numpy as np

@@ -20,6 +20,8 @@ Tolerances (fp32):
   bitwise (host float64 numpy in both).
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 
 import jax

@@ -24,6 +24,8 @@ largest c.
   either load width bitwise its plain version.
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import re
 import types
 from pathlib import Path

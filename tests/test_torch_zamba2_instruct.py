@@ -31,6 +31,8 @@ launches.  The cell itself runs in ``portbench/tests/test_portbench_prefill.py``
 (``test_cell_on_the_card``: correct, and its launches per prefill).
 """
 
+import torch_cpu  # noqa: F401 (this worker's share of the CPU)
+
 import dataclasses
 import importlib.util
 import json
@@ -52,7 +54,6 @@ from repro_torch.kernels import ssm_scan as sk
 from repro_torch.models import hybrid, init_model, model_decode_step, \
     model_loss
 from repro_torch.models.attention import naive_attention
-from repro_torch.models.ssm import _causal_conv
 from repro_torch.serve import engine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -369,7 +370,7 @@ def _todays_layer(cfg, p, x):
     C = Din + 2 * G * N
     z, xbc, dt = (zxbcdt[..., :Din], zxbcdt[..., Din:Din + C],
                   zxbcdt[..., Din + C:])
-    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xbc, _ = mg.causal_conv_plain(xbc, p["conv_w"], p["conv_b"])
     xs = xbc[..., :Din].unflatten(-1, (H, P))
     bc = xbc[..., Din:]
     Bm = bc[..., :G * N].unflatten(-1, (G, N))
