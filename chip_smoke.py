@@ -130,10 +130,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``ssm_scan`` at 2 B / C groups, each held to its plain version and
    timed; row 7 (``time_mamba_glue``): the Mamba2 layer's prologue and
    epilogue kernels there, the prologue bitwise its plain version and the
-   epilogue within one bf16 ulp, each timed beside it; then one prefill of
-   the published model with its launches counted (13 sm90, 81 each of
-   ``ssm_scan``, ``mamba_in``, ``mamba_out``); four more rows of the
-   ``kernels`` line.
+   epilogue within one bf16 ulp, each timed beside it; row 8
+   (``time_rms_norm``): the RMSNorm kernel there over d_model and over
+   two pieces of d_model, within one bf16 ulp of its plain version, timed
+   beside it; then one prefill of the published model with its launches
+   counted (13 sm90, 81 each of ``ssm_scan``, ``mamba_in``,
+   ``mamba_out``, 108 ``rms_norm``); six more rows of the ``kernels``
+   line.
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
    ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
@@ -1993,8 +1996,11 @@ def time_zamba2_instruct(dev):
     published model at full width and depth (B 1, S 4 096, weights drawn on
     the card) with the launch counters zeroed just before it: one sm90
     launch per hybrid layer (13), one ``ssm_scan``, ``mamba_in`` and
-    ``mamba_out`` per layer (81 each).  Row 7 is :func:`time_mamba_glue`'s.
-    Returns the four rows of the ``kernels`` line."""
+    ``mamba_out`` per layer (81 each), and ``rms_norm`` 108 times (each
+    layer's input norm, the shared blocks' two norms at 13 layers, the
+    final norm).  Row 7 is :func:`time_mamba_glue`'s, row 8
+    :func:`time_rms_norm`'s.  Returns the six rows of the ``kernels``
+    line."""
     import torch
     import torch.nn.functional as F
     from portbench.reference import prefill_cost as pc
@@ -2002,6 +2008,7 @@ def time_zamba2_instruct(dev):
     from repro_torch.configs import zamba2_7b_instruct as zi
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_glue as mg
+    from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import ssm_scan as sk
     from repro_torch.models import init_model
     from repro_torch.serve.engine import prefill_step
@@ -2066,6 +2073,7 @@ def time_zamba2_instruct(dev):
     del x, a, Bm, Cm
     torch.cuda.empty_cache()
     glue = time_mamba_glue(cfg, B, S, dev)
+    norm = time_rms_norm(cfg, B, S, dev)
 
     params = init_model(cfg, 28, device=dev)
     toks = torch.randint(0, cfg.vocab_size, (1, S), device=dev,
@@ -2074,18 +2082,21 @@ def time_zamba2_instruct(dev):
     fa.reset_launches()
     sk.reset_launches()
     mg.reset_launches()
+    rn.reset_launches()
     with torch.inference_mode():
         logits = prefill_step(cfg, RunConfig(attn_impl="pallas",
                                              use_pallas=True), params,
                               {"tokens": toks})
     counts = {"flash_sm90": fa.launches_by_path["sm90"],
-              "ssm_scan": sk.launches["ssm_scan"], **mg.launches}
+              "ssm_scan": sk.launches["ssm_scan"], **mg.launches,
+              **rn.launches}
     finite = bool(torch.isfinite(logits).all())
     del params, logits
     torch.cuda.empty_cache()
     want = {"flash_sm90": len(cfg.hybrid_layer_ids),
             "ssm_scan": cfg.n_layers, "mamba_in": cfg.n_layers,
-            "mamba_out": cfg.n_layers}
+            "mamba_out": cfg.n_layers,
+            "rms_norm": 2 * len(cfg.hybrid_layer_ids) + cfg.n_layers + 1}
     log(f"  one prefill of the published model (B 1, S {S}): launches "
         f"{counts} (expected {want}), logits finite: {finite}")
     if counts != want or not finite:
@@ -2095,7 +2106,10 @@ def time_zamba2_instruct(dev):
     scan["launches"] = counts["ssm_scan"]
     for name in glue:
         glue[name]["launches"] = counts[name]
-    return {"flash_attention_d224": flash, "ssm_scan_g2": scan, **glue}
+    for row in norm.values():
+        row["launches"] = counts["rms_norm"]
+    return {"flash_attention_d224": flash, "ssm_scan_g2": scan, **glue,
+            **norm}
 
 
 def glue_inputs(cfg, B, S, seed, dev):
@@ -2194,6 +2208,55 @@ def time_mamba_glue(cfg, B, S, dev):
             f"{r['bound_ms'] / r['ms']:.3f} of it)")
     log(f"  mamba_in bitwise the plain version; mamba_out differs from it "
         f"on {share:.2e} of its elements, none by more than one bf16 ulp")
+    return rows
+
+
+def time_rms_norm(cfg, B, S, dev):
+    """Row 8: the RMSNorm kernel (``kernels/rms_norm.py``) at the
+    ``zamba2_7b.prefill`` cell's B · S rows, over d_model (the Mamba2
+    layers' input norm, the pre-MLP and final norms) and over two pieces
+    of d_model each (the shared block's input norm on x and e, never
+    concatenated), bf16 as the model runs it: each held to its plain
+    version (within one bf16 ulp, on at most 1e-3 of its elements) and
+    timed beside it; the bound is each row read and written once at
+    3.35 TB/s."""
+    import torch
+    from repro_torch.kernels import rms_norm as rn
+    gen = torch.Generator(device=dev).manual_seed(30)
+    M = cfg.d_model
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    x, e = (randn(B * S, M).to(torch.bfloat16) for _ in range(2))
+    rows = {}
+    for name, tail in (("rms_norm", None), ("rms_norm_cat", e)):
+        W = M if tail is None else 2 * M
+        scale = (1.0 + 0.1 * randn(W)).to(torch.bfloat16)
+
+        def kern():
+            return rn.rms_norm(x, scale, cfg.norm_eps, tail=tail)
+
+        def plain():
+            return rn.rms_norm_plain(x, scale, cfg.norm_eps, tail=tail)
+        out, want = kern(), plain()
+        over, share = bf16_ulp_gap(out, want)
+        err = float((out.float() - want.float()).abs().max())
+        del out, want
+        if over or share > 1e-3:
+            raise AssertionError(f"{name}: {over} elements over one bf16 "
+                                 f"ulp of the plain version, {share} "
+                                 f"differ")
+        nbytes = rn.nbytes(B * S, W)
+        rows[name] = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
+                      "library_ms": None,
+                      "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes", "max_abs_err": err}
+        r = rows[name]
+        log(f"  {name} rows={B * S} W={W} bf16: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{nbytes / 1e9:.3f} GB, {r['bound_ms'] / r['ms']:.3f} of it); "
+            f"differs from the plain version on {share:.2e} of its "
+            f"elements, none by more than one bf16 ulp")
     return rows
 
 
@@ -4129,7 +4192,7 @@ def main() -> int:
         t_flash = time_flash(dev, 8192)
     time_flash(dev, 8192, H=32, KV=32, D=112)    # zamba2_7b's attention
     t_ssm, t_wkv = time_scans(dev)
-    t_zamba2 = time_zamba2_instruct(dev)    # rows 4″, 5′ and 7
+    t_zamba2 = time_zamba2_instruct(dev)    # rows 4″, 5′, 7 and 8
     log(f"  phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # phase 12's CPU twins run beside the card from here on (phases 8-12),
@@ -4224,6 +4287,9 @@ def main() -> int:
              "src/repro/kernels/ssm_scan.py:85"),
             ("mamba_in", "src/repro_torch/kernels/csrc/mamba_glue.cu", None),
             ("mamba_out", "src/repro_torch/kernels/csrc/mamba_glue.cu",
+             None),
+            ("rms_norm", "src/repro_torch/kernels/csrc/rms_norm.cu", None),
+            ("rms_norm_cat", "src/repro_torch/kernels/csrc/rms_norm.cu",
              None)):
         t = t_zamba2[name]
         kernels.append({"name": name, "route": "cuda", "source": source,

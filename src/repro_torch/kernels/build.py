@@ -9,8 +9,9 @@ Nothing is built at import time: the first wrapper call on a CUDA tensor
 builds (or :func:`build_all` does, all sources at once, one ``nvcc`` each).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so no multiply-add
-is contracted into an FMA — the update kernels and ``mamba_glue.cu`` must
-round exactly like the plain PyTorch versions they are held against.  No
+is contracted into an FMA — the update kernels, ``mamba_glue.cu`` and
+``rms_norm.cu`` must round exactly like the plain PyTorch versions they are
+held against (up to the order of a sum).  No
 fast-math.
 ``flash_attention.cu``, ``flash_attention_sm90.cu``, ``ssm_scan.cu`` and
 ``wkv6.cu`` are held against their plain versions within stated
@@ -22,9 +23,10 @@ hash covers each source's own flags.
 through the runtime, so no source links against anything but cudart.
 
 The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``,
-``ssm_scan.py``, ``wkv6.py``, ``mamba_glue.py``) share the binding helpers below: operand
-checks, the 16-byte vector-path tests, the update kernels' largest c and
-the launch error check.
+``ssm_scan.py``, ``wkv6.py``, ``mamba_glue.py``, ``rms_norm.py``) share
+the binding helpers below: the device test, operand checks, the 16-byte
+vector-path tests, the update kernels' largest c and the launch error
+check.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("replay_ring", "ps_update", "flash_attention",
-           "flash_attention_sm90", "ssm_scan", "wkv6", "mamba_glue")
+           "flash_attention_sm90", "ssm_scan", "wkv6", "mamba_glue",
+           "rms_norm")
 # the kernels' optimizer codes (update_event.cuh: OPT_SGD, OPT_MOMENTUM, ...)
 OPT_CODES = {"sgd": 0, "momentum": 1, "adagrad": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -161,6 +164,19 @@ def check_operand(name: str, t: Optional[torch.Tensor], shape, dtype,
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def on_card(name: str, *operands) -> bool:
+    """True on CUDA operands, False on CPU ones (the plain versions);
+    raises on a mix or any other device."""
+    dev = operands[0].device
+    if any(t.device != dev for t in operands):
+        raise ValueError(f"{name}: operands lie on "
+                         f"{sorted({str(t.device) for t in operands})}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda (kernel) or cpu (plain "
+                         f"version), not {dev.type}")
+    return dev.type == "cuda"
 
 
 def ptr(t: Optional[torch.Tensor]):

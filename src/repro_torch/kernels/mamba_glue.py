@@ -68,19 +68,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _on_card(name: str, *operands) -> bool:
-    """True on CUDA operands, False on CPU ones; raises on a mix or any
-    other device."""
-    dev = operands[0].device
-    if any(t.device != dev for t in operands):
-        raise ValueError(f"{name}: operands lie on "
-                         f"{sorted({str(t.device) for t in operands})}")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda (kernel) or cpu (plain "
-                         f"version), not {dev.type}")
-    return dev.type == "cuda"
-
-
 def _check_widths(name: str, dtype, **widths) -> None:
     if dtype not in _DTYPES:
         raise ValueError(f"{name} takes fp32 or bf16, got {dtype}")
@@ -109,7 +96,8 @@ def mamba_in(xbc: torch.Tensor, dt: torch.Tensor, conv_w: torch.Tensor,
                          f"conv_b {tuple(conv_b.shape)}, dt_bias "
                          f"{tuple(dt_bias.shape)}, A_log "
                          f"{tuple(A_log.shape)} at head dim {head_dim}")
-    if not _on_card("mamba_in", xbc, dt, conv_w, conv_b, dt_bias, A_log):
+    if not build.on_card("mamba_in", xbc, dt, conv_w, conv_b, dt_bias,
+                         A_log):
         return mamba_in_plain(xbc, dt, conv_w, conv_b, dt_bias, A_log,
                               head_dim=head_dim)
     _check_widths("mamba_in", xbc.dtype, C=C, head_dim=head_dim)
@@ -158,7 +146,7 @@ def mamba_out(y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
                          f"{tuple(xs.shape)}, z {tuple(z.shape)}, D "
                          f"{tuple(D.shape)}, gate_norm "
                          f"{tuple(gate_norm.shape)} in {groups} groups")
-    if not _on_card("mamba_out", y, xs, z, D, gate_norm):
+    if not build.on_card("mamba_out", y, xs, z, D, gate_norm):
         return mamba_out_plain(y, xs, z, D, gate_norm, groups=groups,
                                eps=eps)
     _check_widths("mamba_out", z.dtype, head_dim=P,

@@ -1,18 +1,20 @@
 """Public wrappers of the port's kernels (counterpart of
 ``repro/kernels/ops.py``: the parameter-server update, flash attention, the
-Mamba2 SSD scan and the RWKV6 WKV recurrence).
+Mamba2 SSD scan and the RWKV6 WKV recurrence; and the port's own Mamba2
+glue and RMSNorm).
 
 The reference jit-compiles each wrapper and derives Pallas' interpret mode
 from the backend.  Here the device of the operands decides: a CUDA tensor
 launches the CUDA kernel, a CPU tensor runs its plain PyTorch version.
 
-The flash, ssm, Mamba2 glue and wkv6 kernels have no backward (neither
-have the reference's Pallas kernels: ``jax.grad`` through them fails).  Their
-outputs are written by a foreign launch into fresh buffers, so autograd
-would see them as constants and the attention, mamba and rwkv weights
-would silently get no gradient.  So these wrappers raise when autograd is
-recording and an operand requires a gradient, on either device: training
-runs ``attn_impl="chunked"`` / ``"naive"`` and ``use_pallas=False``.
+The flash, ssm, Mamba2 glue, RMSNorm and wkv6 kernels have no backward
+(neither have the reference's Pallas kernels: ``jax.grad`` through them
+fails).  Their outputs are written by a foreign launch into fresh buffers,
+so autograd would see them as constants and the attention, mamba, norm and
+rwkv weights would silently get no gradient.  So these wrappers raise when
+autograd is recording and an operand requires a gradient, on either
+device: training runs ``attn_impl="chunked"`` / ``"naive"`` and
+``use_pallas=False``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_glue as _mg
 from repro_torch.kernels import ps_update as _ps
+from repro_torch.kernels import rms_norm as _rn
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import wkv6 as _wkv
 
@@ -80,6 +83,13 @@ def mamba_out(y, xs, z, D, gate_norm, *, groups: int, eps: float):
     RMSNorm (see ``mamba_glue.mamba_out``)."""
     _no_graph("mamba_out", y, xs, z, D, gate_norm)
     return _mg.mamba_out(y, xs, z, D, gate_norm, groups=groups, eps=eps)
+
+
+def rms_norm(x, scale, eps: float = 1e-5, *, tail=None):
+    """RMSNorm of each row of x, or of concat(x, tail), in one pass (see
+    ``rms_norm.rms_norm``)."""
+    _no_graph("rms_norm", x, scale, tail)
+    return _rn.rms_norm(x, scale, eps, tail=tail)
 
 
 def wkv6(r, k, v, w, u, *, chunk: int = _wkv.DEFAULT_CHUNK,

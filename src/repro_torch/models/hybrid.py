@@ -32,7 +32,10 @@ hybrid layer (the shared blocks share weights, never caches).
 The prefill runs ``kernels.ops.flash_attention`` (``attn_impl="pallas"``)
 and, under ``use_pallas``, each Mamba2 layer's ``kernels.ops.mamba_in``,
 ``ssm_scan`` and ``mamba_out`` (the convolution, gates and norm around the
-scan) on the card, their plain versions otherwise; training goes through
+scan) and every RMSNorm of the residual stream and the shared blocks
+through ``kernels.ops.rms_norm`` (the shared block's input norm reads x
+and e as two pieces, no concatenation) on the card, their plain versions
+otherwise; decoding runs the plain norms; training goes through
 autograd on the plain path, each layer a ``torch.utils.checkpoint`` region
 under ``RunConfig.remat``.
 Spans: ``shared_block`` around each shared-block call (on the device's
@@ -214,22 +217,31 @@ def mamba_step(cfg: HybridConfig, p: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the shared transformer block
 # ---------------------------------------------------------------------------
+def _norm(use_pallas: bool):
+    """RMSNorm(x, scale, eps, tail=None): the kernel under ``use_pallas``,
+    else the plain version."""
+    if use_pallas:
+        from repro_torch.kernels import ops as kops
+        return kops.rms_norm
+    return rms_norm
+
+
 def _qkv(cfg: HybridConfig, w: dict, x: torch.Tensor, e: torch.Tensor,
-         positions: torch.Tensor):
+         positions: torch.Tensor, use_pallas: bool = False):
     H, Dh = cfg.n_heads, cfg.d_head
-    h = rms_norm(torch.cat([x, e], dim=-1), w["input_norm"], cfg.norm_eps)
+    h = _norm(use_pallas)(x, w["input_norm"], cfg.norm_eps, tail=e)
     q, k, v = (torch.matmul(h, w[n]).unflatten(-1, (H, Dh))
                for n in ("w_q", "w_k", "w_v"))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _mlp(cfg: HybridConfig, w: dict, p: dict,
-         o: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: HybridConfig, w: dict, p: dict, o: torch.Tensor,
+         use_pallas: bool = False) -> torch.Tensor:
     """Out projection, RMSNorm, the gated GELU MLP with layer p's
     adapter."""
-    a = rms_norm(torch.matmul(o.flatten(-2), w["w_o"]), w["pre_ff_norm"],
-                 cfg.norm_eps)
+    a = _norm(use_pallas)(torch.matmul(o.flatten(-2), w["w_o"]),
+                          w["pre_ff_norm"], cfg.norm_eps)
     gu = torch.matmul(a, w["w_gate_up"]) + torch.matmul(
         torch.matmul(a, p["adapter_down"]), p["adapter_up"])
     g, u = gu.chunk(2, dim=-1)
@@ -241,7 +253,7 @@ def shared_block_forward(cfg: HybridConfig, run: RunConfig, w: dict,
                          p: dict, x: torch.Tensor, e: torch.Tensor,
                          positions: torch.Tensor) -> torch.Tensor:
     """T of a full sequence (causal self-attention)."""
-    q, k, v = _qkv(cfg, w, x, e, positions)
+    q, k, v = _qkv(cfg, w, x, e, positions, run.use_pallas)
     scale = cfg.attn_scale
     if run.attn_impl == "pallas":
         from repro_torch.kernels import ops as kops
@@ -253,7 +265,7 @@ def shared_block_forward(cfg: HybridConfig, run: RunConfig, w: dict,
                                    q_chunk=run.attn_q_chunk,
                                    kv_chunk=run.attn_kv_chunk,
                                    unroll=run.unroll, scale=scale)
-    return _mlp(cfg, w, p, o)
+    return _mlp(cfg, w, p, o, run.use_pallas)
 
 
 def shared_block_step(cfg: HybridConfig, w: dict, p: dict, x: torch.Tensor,
@@ -286,12 +298,14 @@ def _layer(cfg: HybridConfig, run: RunConfig, params: dict, i: int,
             xin = x + torch.matmul(shared_block_forward(
                 cfg, run, params["shared"][str(k)], p, x, e, positions),
                 p["linear"])
-    return x + mamba_forward(cfg, p, rms_norm(xin, p["norm"], cfg.norm_eps),
-                             use_pallas=run.use_pallas)
+    return x + mamba_forward(
+        cfg, p, _norm(run.use_pallas)(xin, p["norm"], cfg.norm_eps),
+        use_pallas=run.use_pallas)
 
 
-def _logits(cfg: HybridConfig, params: dict, x: torch.Tensor):
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+def _logits(cfg: HybridConfig, params: dict, x: torch.Tensor,
+            use_pallas: bool = False):
+    x = _norm(use_pallas)(x, params["final_norm"]["scale"], cfg.norm_eps)
     head_w = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = lm_head(x, head_w)
     if cfg.padded_vocab != cfg.vocab_size:
@@ -314,7 +328,8 @@ def forward(cfg: HybridConfig, run: RunConfig, params: dict,
         else:
             x = _layer(cfg, run, params, i, x, e, positions)
     zero = torch.zeros((), dtype=torch.float32, device=e.device)
-    return _logits(cfg, params, x), {"lb_loss": zero, "z_loss": zero}
+    return (_logits(cfg, params, x, run.use_pallas),
+            {"lb_loss": zero, "z_loss": zero})
 
 
 def init_caches(cfg: HybridConfig, batch: int, max_len: int,

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.rms_norm import rms_norm_plain
+
 Lead = Tuple[int, ...]
 
 
@@ -47,12 +49,9 @@ def normal(gen: Optional[torch.Generator], shape, dtype, device,
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)).to(x.dtype)
+# rms_norm(x, scale, eps): the plain version beside its kernel
+# (``kernels/rms_norm.py``), which the hybrid's prefill launches instead
+rms_norm = rms_norm_plain
 
 
 def init_rms_norm(d: int, dtype, device, lead: Lead = ()) -> dict:

@@ -95,11 +95,13 @@ def test_port_file_list_is_complete():
                      "experiments/cells/cnn_fig5.py", "models/moe.py",
                      "launch/specs.py", "launch/dryrun.py",
                      "launch/report.py", "launch/dryrun_campaign.py",
-                     "launch/campaign.py", "kernels/mamba_glue.py"):
+                     "launch/campaign.py", "kernels/mamba_glue.py",
+                     "kernels/rms_norm.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",
-                   "ssm_scan.cu", "wkv6.cu", "mamba_glue.cu"):
+                   "ssm_scan.cu", "wkv6.cu", "mamba_glue.cu", "rms_norm.cu",
+                   "rows.cuh"):
         assert (PORT / "kernels" / "csrc" / source).is_file()
 
 

@@ -25,7 +25,7 @@ from repro_torch.config import RunConfig
 from repro_torch.experiments import ExperimentSpec
 from repro_torch.experiments.driver import run
 from repro_torch.kernels import (flash_attention, mamba_glue, ps_update,
-                                 replay_ring, ssm_scan, wkv6)
+                                 replay_ring, rms_norm, ssm_scan, wkv6)
 
 LEARNERS = 8
 
@@ -172,12 +172,13 @@ def test_counters_grow_and_reset_zeroes_the_launch_groups():
               "launch.ssm_scan": (ssm_scan.launches, "ssm_scan"),
               "launch.wkv6": (wkv6.launches, "wkv6"),
               "launch.mamba_in": (mamba_glue.launches, "mamba_in"),
-              "launch.mamba_out": (mamba_glue.launches, "mamba_out")}
+              "launch.mamba_out": (mamba_glue.launches, "mamba_out"),
+              "launch.rms_norm": (rms_norm.launches, "rms_norm")}
     for full, (group, name) in groups.items():
         group[name] += 3
         assert obs.counters()[full] == group[name] >= 3
     for mod in (replay_ring, ps_update, flash_attention, ssm_scan, wkv6,
-                mamba_glue):
+                mamba_glue, rms_norm):
         mod.reset_launches()
     now = obs.counters()
     assert all(now[full] == 0 for full in groups)

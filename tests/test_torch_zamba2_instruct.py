@@ -20,14 +20,15 @@ shared blocks and two adapters run.
   spans and counters of a prefill; the configuration's published count;
 * the Mamba2 layer's glue wrappers (``kernels/mamba_glue.py``) on CPU
   tensors bitwise the chain ``models/hybrid.py`` ran before them, and the
-  layer through either path bitwise that layer; both wrappers refuse
-  autograd.
+  layer through either path bitwise that layer; both wrappers, and the
+  RMSNorm kernel's (``kernels/rms_norm.py``, tested in
+  ``test_torch_rms_norm.py``), refuse autograd.
 
 On the card (``-m cuda``): the sm90 kernel at head 224, ``ssm_scan`` at
 G 2 and the glue kernels (the prologue bitwise, the epilogue within one
 bf16 ulp) against their plain versions at the ``zamba2_7b.prefill``
-cell's shapes; one prefill of a ``SMOKE`` model counting the glue
-launches.  The cell itself runs in ``portbench/tests/test_portbench_prefill.py``
+cell's shapes; one prefill of a ``SMOKE`` model counting the glue and
+RMSNorm launches.  The cell itself runs in ``portbench/tests/test_portbench_prefill.py``
 (``test_cell_on_the_card``: correct, and its launches per prefill).
 """
 
@@ -50,6 +51,7 @@ from repro_torch.configs import zamba2_7b_instruct as zi
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_glue as mg
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import ssm_scan as sk
 from repro_torch.models import hybrid, init_model, model_decode_step, \
     model_loss
@@ -430,7 +432,7 @@ def test_glue_is_todays_chain_on_cpu(G, S):
     assert bool((want[2][..., 0] < -20).all())     # past the threshold
 
 
-@pytest.mark.parametrize("wrapper", ["mamba_in", "mamba_out"])
+@pytest.mark.parametrize("wrapper", ["mamba_in", "mamba_out", "rms_norm"])
 def test_glue_wrappers_refuse_autograd(wrapper):
     cfg = zi.SMOKE
     p, gen = _glue_layer(cfg, 40)
@@ -439,12 +441,15 @@ def test_glue_wrappers_refuse_autograd(wrapper):
     Din, H, P = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_head_dim
     xs = xbc[..., :Din].unflatten(-1, (H, P))
     y = torch.randn(1, 5, H, P, generator=gen)
-    w = p["conv_w" if wrapper == "mamba_in" else "gate_norm"]
+    w = p[{"mamba_in": "conv_w", "mamba_out": "gate_norm",
+           "rms_norm": "norm"}[wrapper]]
 
     def call():
         if wrapper == "mamba_in":
             return kops.mamba_in(xbc, dt, p["conv_w"], p["conv_b"],
                                  p["dt_bias"], p["A_log"], head_dim=P)
+        if wrapper == "rms_norm":
+            return kops.rms_norm(x, p["norm"], cfg.norm_eps)
         return kops.mamba_out(y, xs, z, p["D"], p["gate_norm"],
                               groups=cfg.ssm_groups, eps=cfg.norm_eps)
     w.requires_grad_(True)
@@ -557,16 +562,20 @@ def test_mamba_glue_matches_plain_on_card(cuda, B, S, G, dtype):
 def test_smoke_prefill_launches_the_glue_on_card(cuda):
     """One ``prefill_step`` of ``SMOKE`` at head dim 32 (``ssm_scan``'s
     kernel takes P of 32, 64 or 128): one launch of each glue kernel and
-    of the scan per layer, and logits within ``SMOKE_LIMIT`` / 2 of the
-    plain path's on the card."""
+    of the scan per layer, one RMSNorm launch per layer, two per hybrid
+    layer and the final norm, and logits within ``SMOKE_LIMIT`` / 2 of
+    the plain path's on the card."""
     cfg = dataclasses.replace(zi.SMOKE, ssm_head_dim=32)
     params = init_model(cfg, 0, device=cuda)
     tok = tokens(8, 2, 40).to(cuda)
     mg.reset_launches()
     sk.reset_launches()
+    rn.reset_launches()
     got = engine.prefill_step(cfg, KERNELS, params, {"tokens": tok})
     assert mg.launches == {"mamba_in": cfg.n_layers,
                            "mamba_out": cfg.n_layers}
     assert sk.launches["ssm_scan"] == cfg.n_layers
+    assert rn.launches["rms_norm"] == \
+        2 * len(cfg.hybrid_layer_ids) + cfg.n_layers + 1
     plain = engine.prefill_step(cfg, NAIVE, params, {"tokens": tok})
     assert REF.logit_rms_gap(got, plain) < SMOKE_LIMIT / 2

@@ -9,9 +9,9 @@ drawn): the cell's configuration
 ``serve.engine.prefill_step`` with the kernels, one warm-up prefill, then
 ``--prefills`` prefills under ``torch.profiler``.  Prints one JSON line of
 device seconds and launches per prefill by class (GEMMs, ``ssm_scan``'s
-``ssd_*`` kernels, flash, the Mamba2 glue kernels, PyTorch's elementwise
-and reduction kernels, other), the device's busy time and the span, then
-the 16 kernels that take longest.  It runs on any checkout with the
+``ssd_*`` kernels, flash, the Mamba2 glue kernels, the RMSNorm kernel,
+PyTorch's elementwise and reduction kernels, other), the device's busy
+time and the span, then the 16 kernels that take longest.  It runs on any checkout with the
 cell, so an older tree (``git archive`` into ``build/``) is read the same
 way.
 """
@@ -29,6 +29,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 def kernel_class(name: str) -> str:
     if "mamba_in_kernel" in name or "mamba_out_kernel" in name:
         return "mamba_glue"
+    if "rms_norm_kernel" in name:
+        return "norm"
     if "ssd_" in name:
         return "ssm_scan"
     if "flash_" in name:
