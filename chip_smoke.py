@@ -136,7 +136,16 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    beside it; then one prefill of the published model with its launches
    counted (13 sm90, 81 each of ``ssm_scan``, ``mamba_in``,
    ``mamba_out``, 108 ``rms_norm``); six more rows of the ``kernels``
-   line.
+   line.  Rows 9 and 10 (``time_granite_moe``): the dropless MoE's
+   dispatch and combine kernels at one layer of the
+   ``granite_4_0_h_small.prefill_16k`` cell (T 16 384, 72 experts,
+   top-10), each held to its plain version and timed beside it, the
+   routing skewed (an expert with no row, one with every token's), the
+   grouped expert product beside one product an expert, and one prefill
+   of Granite-4.0-H-Small at full width and depth with its launches
+   counted (4 sm90, 36 each of ``ssm_scan``, ``mamba_in``, ``mamba_out``,
+   81 ``rms_norm``, 40 each of ``moe_dispatch``, ``moe_combine``); two
+   more rows.
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
    ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
@@ -2260,6 +2269,177 @@ def time_rms_norm(cfg, B, S, dev):
     return rows
 
 
+def time_granite_moe(dev):
+    """Rows 9 and 10: the dropless MoE's dispatch and combine
+    (``kernels/moe_route.py``) at one layer of the
+    ``granite_4_0_h_small.prefill_16k`` cell (T 16 384 rows of 4 096, 72
+    experts, top-10, bf16), each held to its plain version (the dispatch's
+    experts, counts, ends, rows and gathered x bitwise, its gates within
+    4 fp32 ulps, there and with the routing skewed so one expert gets no
+    row and one most of them; the combine bitwise), its largest
+    difference from it kept in its row, and timed beside it; the bounds
+    are ``portbench/reference/granite_cost.py``'s bytes at 3.35 TB/s.
+    Then the grouped expert product (``torch._grouped_mm``) against one product a
+    expert there and at the cell's routing, and one prefill of the
+    published model (B 1, S 16 384, weights drawn on the card) with the
+    launch counters zeroed just before it: flash 4, ``ssm_scan``,
+    ``mamba_in`` and ``mamba_out`` 36 each, ``rms_norm`` 81, the dispatch
+    and the combine 40 each.  Returns the two rows of the ``kernels``
+    line."""
+    import torch
+    from portbench.reference import granite_cost as gc
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import granite_4_0_h_small as gs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_glue as mg
+    from repro_torch.kernels import moe_route as mr
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import ssm_scan as sk
+    from repro_torch.models import granite, init_model
+    from repro_torch.serve.engine import prefill_step
+    pub = json.loads((ROOT / "portbench/configs/granite_4_0_h_small.json")
+                     .read_text())
+    cfg = gs.CONFIG
+    T, M, E, k = 16384, cfg.d_model, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    x = randn(T, M).to(torch.bfloat16)
+    w_r = (randn(M, E) * 0.02).to(torch.bfloat16)
+    logits = x.float() @ w_r.float()
+
+    def check_dispatch(lg, what):
+        got, want = mr.moe_dispatch(lg, x, k), mr.moe_dispatch_plain(lg, x, k)
+        for name in ("experts", "counts", "ends", "pos", "xs"):
+            if not torch.equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"moe_dispatch {what}: {name} differs "
+                                     f"from the plain version")
+        diff = (got.gates - want.gates).abs()
+        ulps = float((diff / torch.finfo(torch.float32).eps
+                      / want.gates.abs()).max())
+        if ulps > 4:
+            raise AssertionError(f"moe_dispatch {what}: gates {ulps} ulps "
+                                 f"from the plain version")
+        return got, ulps, float(diff.max())
+    routed, ulps, err = check_dispatch(logits, "at the cell's routing")
+    # expert 5 gets no row, expert 3 one of every token's
+    skew = logits.clone()
+    skew[:, 5] = -1e4
+    skew[:, 3] += 1e4
+    skewed, ulps_s, err_s = check_dispatch(skew, "skewed")
+    counts = skewed.counts
+    if int(counts[5]) != 0 or int(counts[3]) != T \
+            or int(counts.sum()) != T * k:
+        raise AssertionError(f"skewed routing counts {counts.tolist()}")
+    rows = {}
+    nbytes = gc.dispatch_bytes(pub, 1, T)
+    rows["moe_dispatch"] = {
+        "ms": cuda_ms(lambda: mr.moe_dispatch(logits, x, k), 20),
+        "plain_ms": cuda_ms(lambda: mr.moe_dispatch_plain(logits, x, k), 5),
+        "library_ms": None, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "max_abs_err": max(err, err_s)}
+    r = rows["moe_dispatch"]
+    log(f"  moe_dispatch T={T} M={M} E={E} k={k} bf16: {r['ms']:.4f} ms "
+        f"(plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+        f"{nbytes / 1e9:.3f} GB, {r['bound_ms'] / r['ms']:.3f} of it); "
+        f"rows bitwise the plain version, gates within "
+        f"{max(ulps, ulps_s):.2f} ulps (max |diff| {r['max_abs_err']:.3e}), "
+        f"skewed routing included; rows an expert "
+        f"{int(routed.counts.min())}-{int(routed.counts.max())}")
+
+    y = randn(T * k, M).to(torch.bfloat16)
+    shared, resid = (randn(T, M).to(torch.bfloat16) for _ in range(2))
+    args = (y, routed.gates, routed.pos, shared, resid,
+            cfg.residual_multiplier)
+    got, want = mr.moe_combine(*args), mr.moe_combine_plain(*args)
+    if not torch.equal(got, want):
+        raise AssertionError("moe_combine differs from the plain version")
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    nbytes = gc.combine_bytes(pub, 1, T)
+    rows["moe_combine"] = {
+        "ms": cuda_ms(lambda: mr.moe_combine(*args), 20),
+        "plain_ms": cuda_ms(lambda: mr.moe_combine_plain(*args), 5),
+        "library_ms": None, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "max_abs_err": err}
+    r = rows["moe_combine"]
+    log(f"  moe_combine T={T} M={M} k={k} bf16: {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+        f"{nbytes / 1e9:.3f} GB, {r['bound_ms'] / r['ms']:.3f} of it); "
+        f"bitwise the plain version")
+    del y, shared, resid, args
+
+    w_in = (randn(E, M, 2 * cfg.moe_d_ff) * 0.02).to(torch.bfloat16)
+    for what, rt in (("the cell's routing", routed), ("skewed", skewed)):
+        grouped = granite._grouped(rt.xs, w_in, rt.ends, rt.counts)
+        loop = granite._grouped(rt.xs.float(), w_in.float(), rt.ends,
+                                rt.counts)
+        share = float(((grouped.float() - loop).abs()
+                       > 2 ** -7 * loop.abs() + 1e-3).float().mean())
+        if share > 1e-4:
+            raise AssertionError(f"grouped product {what}: {share} of its "
+                                 f"elements off the fp32 product")
+        g_ms = cuda_ms(lambda: granite._grouped(rt.xs, w_in, rt.ends,
+                                                rt.counts), 5)
+        sizes = rt.counts.tolist()
+
+        def per_expert():
+            out = torch.empty_like(grouped)
+            s = 0
+            for e, n in enumerate(sizes):
+                if n:
+                    torch.matmul(rt.xs[s:s + n], w_in[e], out=out[s:s + n])
+                s += n
+            return out
+        l_ms = cuda_ms(per_expert, 5)
+        flops = 2.0 * T * k * M * 2 * cfg.moe_d_ff
+        log(f"  grouped gate/up product, {what}: {g_ms:.4f} ms "
+            f"({flops / g_ms / 1e9:.1f} TFLOP/s), one product an expert "
+            f"{l_ms:.4f} ms; {share:.2e} of its elements beyond bf16 of "
+            f"the fp32 product")
+    del x, logits, skew, routed, skewed, w_in, grouped, loop
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, 28, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             28))
+    run = RunConfig(attn_impl="pallas", use_pallas=True)
+    with torch.inference_mode():
+        prefill_step(cfg, run, params, {"tokens": toks})
+    for mod in (fa, sk, mg, rn, mr):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = prefill_step(cfg, run, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {"flash_sm90": fa.launches_by_path["sm90"],
+              "ssm_scan": sk.launches["ssm_scan"], **mg.launches,
+              **rn.launches, **mr.launches}
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated()
+    del params, logits
+    torch.cuda.empty_cache()
+    n_attn, L = len(cfg.attention_layer_ids), cfg.n_layers
+    want = {"flash_sm90": n_attn, "ssm_scan": L - n_attn,
+            "mamba_in": L - n_attn, "mamba_out": L - n_attn,
+            "rms_norm": 2 * L + 1, "moe_dispatch": L, "moe_combine": L}
+    log(f"  one prefill of the published model (B 1, S {T}) in "
+        f"{secs:.3f} s ({gc.prefill_flops(pub, 1, T) / secs / 989e12:.3f} "
+        f"of the bf16 peak), peak {peak / 2**30:.2f} GiB: launches {counts} "
+        f"(expected {want}), logits finite: {finite}")
+    if counts != want or not finite:
+        raise AssertionError(f"granite prefill: launches {counts}, expected "
+                             f"{want}; finite {finite}")
+    for name in rows:
+        rows[name]["launches"] = counts[name]
+    return rows
+
+
 def time_scans(dev):
     """Both scan kernels at one layer of their model's prefill: B 1,
     S 8 192, bf16 operands as the bf16 models pass them."""
@@ -4193,6 +4373,7 @@ def main() -> int:
     time_flash(dev, 8192, H=32, KV=32, D=112)    # zamba2_7b's attention
     t_ssm, t_wkv = time_scans(dev)
     t_zamba2 = time_zamba2_instruct(dev)    # rows 4″, 5′, 7 and 8
+    t_granite = time_granite_moe(dev)       # rows 9 and 10
     log(f"  phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # phase 12's CPU twins run beside the card from here on (phases 8-12),
@@ -4294,6 +4475,10 @@ def main() -> int:
         t = t_zamba2[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, **t})
+    for name, t in t_granite.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/moe_route.cu",
+                        "replaces": None, **t})
     for k in kernels:
         if k["launches"] == 0 or not math.isfinite(k["ms"]):
             raise AssertionError(f"{k['name']}: not launched on the path")

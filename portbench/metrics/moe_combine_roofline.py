@@ -1,0 +1,26 @@
+"""moe_combine_roofline: the MoE combine's least time over its device time
+in the traced window, one ``moe_combine_kernel`` launch of
+``csrc/moe_route.cu`` per layer and prefill; the least time is
+``reference/granite_cost.combine_least_s`` at the cell's shapes (its
+bytes over the HBM rate).  A program without the kernel gives nothing.
+Moves ``replay_events_per_s``, the Granite prefill cell's rate of prefill
+calls."""
+
+from portbench.reference import granite_cost
+
+
+def is_kernel(name):
+    return "moe_combine_kernel" in name
+
+
+def read(run):
+    if run.trace is None or run.trace.window is None \
+            or run.stamps.get("kind") != "moe_prefill":
+        return None
+    secs, count = run.trace.device_time(is_kernel)
+    if count == 0:
+        return None
+    s, cfg = run.stamps, run.config
+    calls = s["prefills"] * cfg["num_hidden_layers"]
+    least = granite_cost.combine_least_s(cfg, s["batch"], s["seq"])
+    return 100.0 * least * calls / secs

@@ -340,6 +340,79 @@ class HybridConfig(ModelConfig):
         return self.param_count()
 
 
+@dataclasses.dataclass(frozen=True)
+class GraniteConfig(ModelConfig):
+    """A published Granite 4.0-H hybrid (``configs/granite_4_0_h_small.py``,
+    ``models/granite.py``), beside the reference's fields rather than
+    among them: one mixer a layer, Mamba2 or attention as ``layer_types``
+    says, each followed by a dropless top-``top_k`` MoE of ``n_experts``
+    SwiGLU experts of width ``moe_d_ff`` beside a shared SwiGLU MLP of
+    width ``shared_d_ff``.  The μP multipliers scale the embedding
+    (``embedding_multiplier``), every residual branch
+    (``residual_multiplier``) and divide the logits (``logits_scaling``);
+    attention has no position encoding and scales q·k by
+    ``attention_multiplier``.  ``block_pattern`` is ``("mamba",)``: only
+    ``models/granite.py`` reads the layer list.  ``d_ff`` is the expert
+    width (the published ``intermediate_size``); ``ssm_groups`` the B / C
+    groups of the Mamba2 mixers."""
+
+    layer_types: Tuple[str, ...] = ()
+    shared_d_ff: int = 0
+    ssm_groups: int = 1
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if len(self.layer_types) != self.n_layers or not set(
+                self.layer_types) <= {"mamba", "attention"}:
+            raise ValueError(f"layer_types {self.layer_types} for "
+                             f"{self.n_layers} layers")
+        # the head folds 1 / logits_scaling into the final norm's scale,
+        # exact only for a power of two
+        if not math.log2(self.logits_scaling).is_integer():
+            raise ValueError(f"logits_scaling {self.logits_scaling} is not "
+                             f"a power of two")
+
+    @property
+    def attention_layer_ids(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types)
+                     if t == "attention")
+
+    @property
+    def has_attention(self) -> bool:
+        return bool(self.attention_layer_ids)
+
+    @property
+    def attn_scale(self) -> float:
+        return self.attention_multiplier
+
+    def param_count(self) -> int:
+        M, V, E = self.d_model, self.vocab_size, self.n_experts
+        Din, H, N, G = self.ssm_d_inner, self.ssm_n_heads, self.ssm_state, \
+            self.ssm_groups
+        conv = Din + 2 * G * N
+        mamba = (M * (Din + conv + H) + self.ssm_conv * conv + conv
+                 + 3 * H + Din + Din * M)
+        Dh = self.d_head
+        attn = 2 * M * self.n_heads * Dh + 2 * M * self.n_kv_heads * Dh
+        ffn = (2 * M + M * E + E * 3 * M * self.moe_d_ff
+               + 3 * M * self.shared_d_ff)
+        n_attn = len(self.attention_layer_ids)
+        total = (V * M + M + self.n_layers * ffn + n_attn * attn
+                 + (self.n_layers - n_attn) * mamba)
+        if not self.tie_embeddings:
+            total += M * V
+        return int(total)
+
+    def active_param_count(self) -> int:
+        dead = (self.n_experts - self.top_k) * 3 * self.d_model \
+            * self.moe_d_ff
+        return self.param_count() - self.n_layers * dead
+
+
 # ---------------------------------------------------------------------------
 # Input shapes (assigned)
 # ---------------------------------------------------------------------------

@@ -9,9 +9,9 @@ Nothing is built at import time: the first wrapper call on a CUDA tensor
 builds (or :func:`build_all` does, all sources at once, one ``nvcc`` each).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so no multiply-add
-is contracted into an FMA — the update kernels, ``mamba_glue.cu`` and
-``rms_norm.cu`` must round exactly like the plain PyTorch versions they are
-held against (up to the order of a sum).  No
+is contracted into an FMA — the update kernels, ``mamba_glue.cu``,
+``rms_norm.cu`` and ``moe_route.cu`` must round exactly like the plain
+PyTorch versions they are held against (up to the order of a sum).  No
 fast-math.
 ``flash_attention.cu``, ``flash_attention_sm90.cu``, ``ssm_scan.cu`` and
 ``wkv6.cu`` are held against their plain versions within stated
@@ -23,7 +23,8 @@ hash covers each source's own flags.
 through the runtime, so no source links against anything but cudart.
 
 The wrappers (``replay_ring.py``, ``ps_update.py``, ``flash_attention.py``,
-``ssm_scan.py``, ``wkv6.py``, ``mamba_glue.py``, ``rms_norm.py``) share
+``ssm_scan.py``, ``wkv6.py``, ``mamba_glue.py``, ``rms_norm.py``,
+``moe_route.py``) share
 the binding helpers below: the device test, operand checks, the 16-byte
 vector-path tests, the update kernels' largest c and the launch error
 check.
@@ -47,7 +48,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("replay_ring", "ps_update", "flash_attention",
            "flash_attention_sm90", "ssm_scan", "wkv6", "mamba_glue",
-           "rms_norm")
+           "rms_norm", "moe_route")
 # the kernels' optimizer codes (update_event.cuh: OPT_SGD, OPT_MOMENTUM, ...)
 OPT_CODES = {"sgd": 0, "momentum": 1, "adagrad": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

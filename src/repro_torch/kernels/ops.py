@@ -1,13 +1,13 @@
 """Public wrappers of the port's kernels (counterpart of
 ``repro/kernels/ops.py``: the parameter-server update, flash attention, the
 Mamba2 SSD scan and the RWKV6 WKV recurrence; and the port's own Mamba2
-glue and RMSNorm).
+glue, RMSNorm and the dropless MoE's dispatch and combine).
 
 The reference jit-compiles each wrapper and derives Pallas' interpret mode
 from the backend.  Here the device of the operands decides: a CUDA tensor
 launches the CUDA kernel, a CPU tensor runs its plain PyTorch version.
 
-The flash, ssm, Mamba2 glue, RMSNorm and wkv6 kernels have no backward
+The flash, ssm, Mamba2 glue, RMSNorm, MoE and wkv6 kernels have no backward
 (neither have the reference's Pallas kernels: ``jax.grad`` through them
 fails).  Their outputs are written by a foreign launch into fresh buffers,
 so autograd would see them as constants and the attention, mamba, norm and
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_glue as _mg
+from repro_torch.kernels import moe_route as _moe
 from repro_torch.kernels import ps_update as _ps
 from repro_torch.kernels import rms_norm as _rn
 from repro_torch.kernels import ssm_scan as _ssm
@@ -90,6 +91,21 @@ def rms_norm(x, scale, eps: float = 1e-5, *, tail=None):
     ``rms_norm.rms_norm``)."""
     _no_graph("rms_norm", x, scale, tail)
     return _rn.rms_norm(x, scale, eps, tail=tail)
+
+
+def moe_dispatch(logits, x, k: int):
+    """Each row of x to the top ``k`` experts of its fp32 router
+    ``logits``, gathered into expert order (see
+    ``moe_route.moe_dispatch``)."""
+    _no_graph("moe_dispatch", logits, x)
+    return _moe.moe_dispatch(logits, x, k)
+
+
+def moe_combine(rows, gates, pos, shared, residual, mult: float):
+    """``residual + mult · (Σ gates · rows + shared)`` per token, rounded
+    once (see ``moe_route.moe_combine``)."""
+    _no_graph("moe_combine", rows, gates, shared, residual)
+    return _moe.moe_combine(rows, gates, pos, shared, residual, mult)
 
 
 def wkv6(r, k, v, w, u, *, chunk: int = _wkv.DEFAULT_CHUNK,

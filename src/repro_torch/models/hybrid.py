@@ -64,21 +64,21 @@ from repro_torch.models.layers import (apply_rope, dtype_of, embed,
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _mamba_widths(cfg: HybridConfig) -> Tuple[int, int, int, int, int, int]:
+def _mamba_widths(cfg) -> Tuple[int, int, int, int, int, int]:
     """(d_inner, heads, head dim, state, groups, convolved width)."""
     Din, N, G = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_groups
     return Din, cfg.ssm_n_heads, cfg.ssm_head_dim, N, G, Din + 2 * G * N
 
 
-def _init_layer(gen, cfg: HybridConfig, hybrid: bool, dtype,
-                device) -> dict:
+def init_mamba(gen, cfg, dtype, device) -> dict:
+    """One Mamba2 mixer's leaves drawn from ``gen`` (``cfg`` a
+    ``HybridConfig`` or a ``GraniteConfig``)."""
     M, K = cfg.d_model, cfg.ssm_conv
     Din, H, P, N, G, conv = _mamba_widths(cfg)
     dt = np.exp(np.random.RandomState(0).uniform(
         np.log(1e-3), np.log(1e-1), size=(H,))).astype(np.float32)
     f32 = dict(dtype=torch.float32, device=device)
-    p = {
-        "norm": torch.ones((M,), dtype=dtype, device=device),
+    return {
         "w_in": normal(gen, (M, Din + conv + H), dtype, device,
                        float(1.0 / np.sqrt(M))),
         "conv_w": normal(gen, (K, conv), dtype, device,
@@ -91,6 +91,13 @@ def _init_layer(gen, cfg: HybridConfig, hybrid: bool, dtype,
         "w_out": normal(gen, (Din, M), dtype, device,
                         float(1.0 / np.sqrt(Din))),
     }
+
+
+def _init_layer(gen, cfg: HybridConfig, hybrid: bool, dtype,
+                device) -> dict:
+    M = cfg.d_model
+    p = {"norm": torch.ones((M,), dtype=dtype, device=device),
+         **init_mamba(gen, cfg, dtype, device)}
     if hybrid:
         r, F2 = cfg.adapter_rank, 2 * cfg.d_ff
         p["linear"] = normal(gen, (M, M), dtype, device,
@@ -217,7 +224,7 @@ def mamba_step(cfg: HybridConfig, p: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the shared transformer block
 # ---------------------------------------------------------------------------
-def _norm(use_pallas: bool):
+def norm_of(use_pallas: bool):
     """RMSNorm(x, scale, eps, tail=None): the kernel under ``use_pallas``,
     else the plain version."""
     if use_pallas:
@@ -229,7 +236,7 @@ def _norm(use_pallas: bool):
 def _qkv(cfg: HybridConfig, w: dict, x: torch.Tensor, e: torch.Tensor,
          positions: torch.Tensor, use_pallas: bool = False):
     H, Dh = cfg.n_heads, cfg.d_head
-    h = _norm(use_pallas)(x, w["input_norm"], cfg.norm_eps, tail=e)
+    h = norm_of(use_pallas)(x, w["input_norm"], cfg.norm_eps, tail=e)
     q, k, v = (torch.matmul(h, w[n]).unflatten(-1, (H, Dh))
                for n in ("w_q", "w_k", "w_v"))
     return (apply_rope(q, positions, cfg.rope_theta),
@@ -240,8 +247,8 @@ def _mlp(cfg: HybridConfig, w: dict, p: dict, o: torch.Tensor,
          use_pallas: bool = False) -> torch.Tensor:
     """Out projection, RMSNorm, the gated GELU MLP with layer p's
     adapter."""
-    a = _norm(use_pallas)(torch.matmul(o.flatten(-2), w["w_o"]),
-                          w["pre_ff_norm"], cfg.norm_eps)
+    a = norm_of(use_pallas)(torch.matmul(o.flatten(-2), w["w_o"]),
+                            w["pre_ff_norm"], cfg.norm_eps)
     gu = torch.matmul(a, w["w_gate_up"]) + torch.matmul(
         torch.matmul(a, p["adapter_down"]), p["adapter_up"])
     g, u = gu.chunk(2, dim=-1)
@@ -299,13 +306,13 @@ def _layer(cfg: HybridConfig, run: RunConfig, params: dict, i: int,
                 cfg, run, params["shared"][str(k)], p, x, e, positions),
                 p["linear"])
     return x + mamba_forward(
-        cfg, p, _norm(run.use_pallas)(xin, p["norm"], cfg.norm_eps),
+        cfg, p, norm_of(run.use_pallas)(xin, p["norm"], cfg.norm_eps),
         use_pallas=run.use_pallas)
 
 
 def _logits(cfg: HybridConfig, params: dict, x: torch.Tensor,
             use_pallas: bool = False):
-    x = _norm(use_pallas)(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = norm_of(use_pallas)(x, params["final_norm"]["scale"], cfg.norm_eps)
     head_w = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = lm_head(x, head_w)
     if cfg.padded_vocab != cfg.vocab_size:
@@ -332,18 +339,23 @@ def forward(cfg: HybridConfig, run: RunConfig, params: dict,
             {"lb_loss": zero, "z_loss": zero})
 
 
+def init_mamba_cache(cfg, batch: int, dtype, device) -> dict:
+    """One Mamba2 mixer's decode state: the SSM state (fp32) and the
+    convolution's last K−1 inputs."""
+    Din, H, P, N, G, conv = _mamba_widths(cfg)
+    return {"state": torch.zeros((batch, H, N, P), dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv),
+                                dtype=dtype, device=device)}
+
+
 def init_caches(cfg: HybridConfig, batch: int, max_len: int,
                 device) -> dict:
     dtype = dtype_of(cfg.dtype)
-    Din, H, P, N, G, conv = _mamba_widths(cfg)
     kv = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {
-        "layers": {str(i): {
-            "state": torch.zeros((batch, H, N, P), dtype=torch.float32,
-                                 device=device),
-            "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv), dtype=dtype,
-                                device=device)}
-            for i in range(cfg.n_layers)},
+        "layers": {str(i): init_mamba_cache(cfg, batch, dtype, device)
+                   for i in range(cfg.n_layers)},
         "kv": {str(i): {"k": torch.zeros(kv, dtype=dtype, device=device),
                         "v": torch.zeros(kv, dtype=dtype, device=device)}
                for i in cfg.hybrid_layer_ids},

@@ -12,7 +12,8 @@ Caches are written in place (``models/attention.py``): a state returned by
 ``prefill`` shares its caches with the state it was given.  The whole path
 runs under ``torch.inference_mode()``; no step reads a device value on the
 host except sampling's result.  ``prefill_step`` is the span ``prefill``
-(on the device's clock too), counting the batch's ``tokens``.
+(on the device's clock too), counting the batch's positions as ``tokens``
+(token ids, audio frames and vision patches alike).
 """
 
 from __future__ import annotations
@@ -66,12 +67,18 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: dict,
                                                       tokens[:, -1:])
 
 
+# the inputs of a batch that hold (B, positions, …): token ids, audio
+# frames, vision patches
+_POSITIONS = ("tokens", "frames", "patches")
+
+
 @torch.inference_mode()
 def prefill_step(cfg: ModelConfig, run: RunConfig, params: dict,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward — what the prefill_32k dry-run shape lowers."""
     with obs.span("prefill"):
-        obs.count("tokens", batch["tokens"].numel())
+        obs.count("tokens", sum(batch[k].shape[0] * batch[k].shape[1]
+                                for k in _POSITIONS if k in batch))
         logits, _ = model_forward(cfg, run, params, batch)
     return logits
 

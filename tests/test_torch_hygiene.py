@@ -96,12 +96,13 @@ def test_port_file_list_is_complete():
                      "launch/specs.py", "launch/dryrun.py",
                      "launch/report.py", "launch/dryrun_campaign.py",
                      "launch/campaign.py", "kernels/mamba_glue.py",
-                     "kernels/rms_norm.py"):
+                     "kernels/rms_norm.py", "kernels/moe_route.py",
+                     "models/granite.py"):
         assert expected in names
     for source in ("replay_ring.cu", "ps_update.cu", "update_event.cuh",
                    "flash_attention.cu", "flash_attention_sm90.cu",
                    "ssm_scan.cu", "wkv6.cu", "mamba_glue.cu", "rms_norm.cu",
-                   "rows.cuh"):
+                   "moe_route.cu", "rows.cuh"):
         assert (PORT / "kernels" / "csrc" / source).is_file()
 
 

@@ -24,8 +24,9 @@ from repro_torch import obs
 from repro_torch.config import RunConfig
 from repro_torch.experiments import ExperimentSpec
 from repro_torch.experiments.driver import run
-from repro_torch.kernels import (flash_attention, mamba_glue, ps_update,
-                                 replay_ring, rms_norm, ssm_scan, wkv6)
+from repro_torch.kernels import (flash_attention, mamba_glue, moe_route,
+                                 ps_update, replay_ring, rms_norm, ssm_scan,
+                                 wkv6)
 
 LEARNERS = 8
 
@@ -173,12 +174,14 @@ def test_counters_grow_and_reset_zeroes_the_launch_groups():
               "launch.wkv6": (wkv6.launches, "wkv6"),
               "launch.mamba_in": (mamba_glue.launches, "mamba_in"),
               "launch.mamba_out": (mamba_glue.launches, "mamba_out"),
-              "launch.rms_norm": (rms_norm.launches, "rms_norm")}
+              "launch.rms_norm": (rms_norm.launches, "rms_norm"),
+              "launch.moe_dispatch": (moe_route.launches, "moe_dispatch"),
+              "launch.moe_combine": (moe_route.launches, "moe_combine")}
     for full, (group, name) in groups.items():
         group[name] += 3
         assert obs.counters()[full] == group[name] >= 3
     for mod in (replay_ring, ps_update, flash_attention, ssm_scan, wkv6,
-                mamba_glue, rms_norm):
+                mamba_glue, rms_norm, moe_route):
         mod.reset_launches()
     now = obs.counters()
     assert all(now[full] == 0 for full in groups)
