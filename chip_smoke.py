@@ -134,18 +134,21 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    (``time_rms_norm``): the RMSNorm kernel there over d_model and over
    two pieces of d_model, within one bf16 ulp of its plain version, timed
    beside it; then one prefill of the published model with its launches
-   counted (13 sm90, 81 each of ``ssm_scan``, ``mamba_in``,
-   ``mamba_out``, 108 ``rms_norm``); six more rows of the ``kernels``
-   line.  Rows 9 and 10 (``time_granite_moe``): the dropless MoE's
+   counted (13 sm90, 81 each of ``ssm_scan`` — all ``bf16_bc`` —,
+   ``mamba_in``, ``mamba_out``, 108 ``rms_norm``); six more rows of the
+   ``kernels`` line.  Row 5″ (``time_scan_n128``): ``ssm_scan`` at one
+   Mamba2 layer of the ``granite_4_0_h_small.prefill_16k`` cell (N 128),
+   held to its plain version and timed beside it and its bound, its
+   launches by B / C dtype.  Rows 9 and 10 (``time_granite_moe``): the dropless MoE's
    dispatch and combine kernels at one layer of the
    ``granite_4_0_h_small.prefill_16k`` cell (T 16 384, 72 experts,
    top-10), each held to its plain version and timed beside it, the
    routing skewed (an expert with no row, one with every token's), the
    grouped expert product beside one product an expert, and one prefill
    of Granite-4.0-H-Small at full width and depth with its launches
-   counted (4 sm90, 36 each of ``ssm_scan``, ``mamba_in``, ``mamba_out``,
-   81 ``rms_norm``, 40 each of ``moe_dispatch``, ``moe_combine``); two
-   more rows.
+   counted (4 sm90, 36 each of ``ssm_scan`` — all ``bf16_bc`` —,
+   ``mamba_in``, ``mamba_out``, 81 ``rms_norm``, 40 each of
+   ``moe_dispatch``, ``moe_combine``); three more rows.
 8. Serving: qwen2_1_5b at full width and depth (28 layers, bf16, weights
    from a seeded ``torch.Generator`` on the card) through
    ``serve/engine.py`` with ``attn_impl="pallas", use_pallas=True``:
@@ -2005,7 +2008,8 @@ def time_zamba2_instruct(dev):
     published model at full width and depth (B 1, S 4 096, weights drawn on
     the card) with the launch counters zeroed just before it: one sm90
     launch per hybrid layer (13), one ``ssm_scan``, ``mamba_in`` and
-    ``mamba_out`` per layer (81 each), and ``rms_norm`` 108 times (each
+    ``mamba_out`` per layer (81 each; every ``ssm_scan`` call under
+    ``launch.ssm_scan.bf16_bc``, B and C bf16), and ``rms_norm`` 108 times (each
     layer's input norm, the shared blocks' two norms at 13 layers, the
     final norm).  Row 7 is :func:`time_mamba_glue`'s, row 8
     :func:`time_rms_norm`'s.  Returns the six rows of the ``kernels``
@@ -2097,13 +2101,14 @@ def time_zamba2_instruct(dev):
                                              use_pallas=True), params,
                               {"tokens": toks})
     counts = {"flash_sm90": fa.launches_by_path["sm90"],
-              "ssm_scan": sk.launches["ssm_scan"], **mg.launches,
-              **rn.launches}
+              "ssm_scan": sk.launches["ssm_scan"], **scan_paths(sk),
+              **mg.launches, **rn.launches}
     finite = bool(torch.isfinite(logits).all())
     del params, logits
     torch.cuda.empty_cache()
     want = {"flash_sm90": len(cfg.hybrid_layer_ids),
-            "ssm_scan": cfg.n_layers, "mamba_in": cfg.n_layers,
+            "ssm_scan": cfg.n_layers, "ssm_scan.bf16_bc": cfg.n_layers,
+            "ssm_scan.fp32_bc": 0, "mamba_in": cfg.n_layers,
             "mamba_out": cfg.n_layers,
             "rms_norm": 2 * len(cfg.hybrid_layer_ids) + cfg.n_layers + 1}
     log(f"  one prefill of the published model (B 1, S {S}): launches "
@@ -2113,12 +2118,70 @@ def time_zamba2_instruct(dev):
                              f"{counts}, expected {want}; finite {finite}")
     flash["launches"] = counts["flash_sm90"]
     scan["launches"] = counts["ssm_scan"]
+    scan["launches_by_path"] = scan_paths(sk)
     for name in glue:
         glue[name]["launches"] = counts[name]
     for row in norm.values():
         row["launches"] = counts["rms_norm"]
     return {"flash_attention_d224": flash, "ssm_scan_g2": scan, **glue,
             **norm}
+
+
+def scan_paths(sk) -> dict:
+    """``ssm_scan``'s calls since the last reset by B / C dtype
+    (``launch.ssm_scan.bf16_bc`` / ``.fp32_bc``: whether the kernel split
+    B and C), under the counters' names."""
+    return {f"ssm_scan.{k}": v for k, v in sk.launches_by_bc.items()}
+
+
+def time_scan_n128(cfg, pub, dev):
+    """Row 5″: ``ssm_scan`` at one Mamba2 layer of the
+    ``granite_4_0_h_small.prefill_16k`` cell (B 1, S 16 384, 128 heads, P
+    64, N 128, 1 group, chunk 256, B / C bf16 column slices of one tensor
+    as the model passes them), held to its plain version
+    (``scan_check``) and timed beside it; the bound is
+    ``portbench/reference/prefill_cost.py``'s count of the scan's fp32
+    operations at 67 TFLOP/s, from the published config's Mamba2 keys."""
+    import torch
+    from portbench.reference import prefill_cost as pc
+    from repro_torch.kernels import ssm_scan as sk
+    B, S, N, P, Q = 1, 16384, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
+    H = cfg.ssm_n_heads
+    x, a, Bm, Cm = ssm_inputs(B, S, H, P, N, torch.bfloat16, 29, dev)
+    sk.reset_launches()
+    y, st = sk.ssm_scan(x, a, Bm, Cm, chunk=Q)
+    paths = scan_paths(sk)
+    py, pst = sk.ssm_scan_plain(x, a, Bm, Cm, chunk=Q)
+    span = decay_span(a, Q)
+    err = max(scan_check(y, py, span, "ssm_scan at N 128")[0],
+              scan_check(st, pst, span, "ssm_scan's state at N 128")[0])
+    del y, st, py, pst
+    keys = {"n_mamba_heads": pub["mamba_n_heads"],
+            "mamba_headdim": pub["mamba_d_head"],
+            "mamba_d_state": pub["mamba_d_state"],
+            "mamba_ngroups": pub["mamba_n_groups"],
+            "chunk_size": pub["mamba_chunk_size"],
+            "torch_dtype": pub["torch_dtype"]}
+    row = {"ms": cuda_ms(lambda: sk.ssm_scan(x, a, Bm, Cm, chunk=Q), 5),
+           "plain_ms": cuda_ms(lambda: sk.ssm_scan_plain(
+               x, a, Bm, Cm, chunk=Q), 1, 0),
+           "library_ms": None,
+           "bound_ms": pc.ssm_scan_least_s(keys, B, S) * 1e3,
+           "bound_by": "operations", "max_abs_err": err,
+           "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+           "replaces": "src/repro/kernels/ssm_scan.py:85"}
+    split = kernel_split(lambda: sk.ssm_scan(x, a, Bm, Cm, chunk=Q))
+    log(f"  ssm_scan B={B} S={S} H={H} P={P} N={N} G=1 chunk={Q} B/C "
+        f"bf16: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms, {row['bound_ms'] / row['ms']:.3f} of "
+        f"it); max |kernel - plain| {err}; launches by path {paths}; by "
+        f"kernel: " + "; ".join(f"{short_name(k)} {v:.4f} ms" for k, v in
+                                sorted(split.items(), key=lambda kv: -kv[1])))
+    if paths != {"ssm_scan.bf16_bc": 1, "ssm_scan.fp32_bc": 0}:
+        raise AssertionError(f"ssm_scan at N 128: launches by path {paths}")
+    del x, a, Bm, Cm
+    torch.cuda.empty_cache()
+    return row
 
 
 def glue_inputs(cfg, B, S, seed, dev):
@@ -2270,7 +2333,8 @@ def time_rms_norm(cfg, B, S, dev):
 
 
 def time_granite_moe(dev):
-    """Rows 9 and 10: the dropless MoE's dispatch and combine
+    """Row 5″ (:func:`time_scan_n128`), then rows 9 and 10: the dropless
+    MoE's dispatch and combine
     (``kernels/moe_route.py``) at one layer of the
     ``granite_4_0_h_small.prefill_16k`` cell (T 16 384 rows of 4 096, 72
     experts, top-10, bf16), each held to its plain version (the dispatch's
@@ -2283,9 +2347,9 @@ def time_granite_moe(dev):
     expert there and at the cell's routing, and one prefill of the
     published model (B 1, S 16 384, weights drawn on the card) with the
     launch counters zeroed just before it: flash 4, ``ssm_scan``,
-    ``mamba_in`` and ``mamba_out`` 36 each, ``rms_norm`` 81, the dispatch
-    and the combine 40 each.  Returns the two rows of the ``kernels``
-    line."""
+    ``mamba_in`` and ``mamba_out`` 36 each (every ``ssm_scan`` call
+    ``bf16_bc``), ``rms_norm`` 81, the dispatch and the combine 40 each.
+    Returns the three rows of the ``kernels`` line."""
     import torch
     from portbench.reference import granite_cost as gc
     from repro_torch.config import RunConfig
@@ -2332,7 +2396,7 @@ def time_granite_moe(dev):
     if int(counts[5]) != 0 or int(counts[3]) != T \
             or int(counts.sum()) != T * k:
         raise AssertionError(f"skewed routing counts {counts.tolist()}")
-    rows = {}
+    rows = {"ssm_scan_n128": time_scan_n128(cfg, pub, dev)}
     nbytes = gc.dispatch_bytes(pub, 1, T)
     rows["moe_dispatch"] = {
         "ms": cuda_ms(lambda: mr.moe_dispatch(logits, x, k), 20),
@@ -2418,14 +2482,15 @@ def time_granite_moe(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {"flash_sm90": fa.launches_by_path["sm90"],
-              "ssm_scan": sk.launches["ssm_scan"], **mg.launches,
-              **rn.launches, **mr.launches}
+              "ssm_scan": sk.launches["ssm_scan"], **scan_paths(sk),
+              **mg.launches, **rn.launches, **mr.launches}
     finite = bool(torch.isfinite(logits).all())
     peak = torch.cuda.max_memory_allocated()
     del params, logits
     torch.cuda.empty_cache()
     n_attn, L = len(cfg.attention_layer_ids), cfg.n_layers
     want = {"flash_sm90": n_attn, "ssm_scan": L - n_attn,
+            "ssm_scan.bf16_bc": L - n_attn, "ssm_scan.fp32_bc": 0,
             "mamba_in": L - n_attn, "mamba_out": L - n_attn,
             "rms_norm": 2 * L + 1, "moe_dispatch": L, "moe_combine": L}
     log(f"  one prefill of the published model (B 1, S {T}) in "
@@ -2436,7 +2501,8 @@ def time_granite_moe(dev):
         raise AssertionError(f"granite prefill: launches {counts}, expected "
                              f"{want}; finite {finite}")
     for name in rows:
-        rows[name]["launches"] = counts[name]
+        rows[name]["launches"] = counts[name.replace("_n128", "")]
+    rows["ssm_scan_n128"]["launches_by_path"] = scan_paths(sk)
     return rows
 
 
@@ -4373,7 +4439,7 @@ def main() -> int:
     time_flash(dev, 8192, H=32, KV=32, D=112)    # zamba2_7b's attention
     t_ssm, t_wkv = time_scans(dev)
     t_zamba2 = time_zamba2_instruct(dev)    # rows 4″, 5′, 7 and 8
-    t_granite = time_granite_moe(dev)       # rows 9 and 10
+    t_granite = time_granite_moe(dev)       # rows 5″, 9 and 10
     log(f"  phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # phase 12's CPU twins run beside the card from here on (phases 8-12),

@@ -16,7 +16,8 @@ fast-math.
 ``flash_attention.cu``, ``flash_attention_sm90.cu``, ``ssm_scan.cu`` and
 ``wkv6.cu`` are held against their plain versions within stated
 tolerances, not bitwise, and build without ``-fmad=false``
-(``SOURCE_FLAGS``); ``replay_ring.cu`` adds ``--split-compile=0``; the
+(``SOURCE_FLAGS``); ``replay_ring.cu`` and ``ssm_scan.cu`` add
+``--split-compile=0``; the
 hash covers each source's own flags.
 ``flash_attention.cu`` (fp32 operands, 3×TF32 on the tensor cores) and
 ``flash_attention_sm90.cu`` (bf16) find libcuda's ``cuTensorMapEncodeTiled``
@@ -58,9 +59,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _FMA_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 # replay_ring.cu's 72 kernels (the what-if walks are long straight-line
 # code) are optimized in parallel threads: the same SASS in 21 s instead of
-# 40 s on an H100 host
+# 40 s on an H100 host; ssm_scan.cu's 96 (unrolled tensor-core tile loops)
+# likewise, 18-19 s instead of 41-44 s, the longest build of the nine
 SOURCE_FLAGS = {"flash_attention": _FMA_FLAGS,
-                "flash_attention_sm90": _FMA_FLAGS, "ssm_scan": _FMA_FLAGS,
+                "flash_attention_sm90": _FMA_FLAGS,
+                "ssm_scan": _FMA_FLAGS + ("--split-compile=0",),
                 "wkv6": _FMA_FLAGS,
                 "replay_ring": NVCC_FLAGS + ("--split-compile=0",)}
 

@@ -42,12 +42,18 @@ call launches or raises.
 On the card one call is four launches on the current stream, the staged
 algorithm of the source's header: C·Bᵀ per (b, chunk), each chunk's state
 contribution per (b, h, chunk), the state pass per (b, h), and y per (b, h,
-chunk, 64-row block); C·Bᵀ is formed once per (b, group, chunk).  The
-wrapper allocates their scratch with ``torch.empty``
+chunk, 128-row block); C·Bᵀ is formed once per (b, group, chunk).  Every
+tile product runs on the tensor cores as split TF32: an fp32 operand is
+split into a TF32 big part and the TF32 rounding of its remainder and the
+product taken as big·small + small·big + big·big, fp32's accuracy; a bf16
+B or C is exact in TF32 and not split.  The wrapper allocates their
+scratch with ``torch.empty``
 (:func:`scratch_shapes`): at zamba2_7b's layer (B 1, S 8 192, H 112,
 N = P = 64, chunk 256, G 1) 8.4 MB of C·Bᵀ, 3.7 MB of cumulative sums and
 58.7 MB of per-chunk states.  ``launches["ssm_scan"]`` counts one
-per call, whatever the number of kernels it launched.
+per call, whatever the number of kernels it launched, and
+``launches_by_bc`` the same calls by B / C dtype (``bf16_bc``,
+``fp32_bc``: whether B and C were split).
 """
 
 from __future__ import annotations
@@ -67,12 +73,18 @@ HEAD_DIMS = (32, 64, 128)        # P the kernel is built for
 STATE_DIMS = (16, 32, 64, 128)   # N the kernel is built for
 _BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the last reset_launches()
+# kernel launches since the last reset_launches(), and of those each call's
+# B / C dtype: bf16 operands are exact in TF32 and not split, fp32 ones are
+# split (csrc/ssm_scan.cu's header)
 launches = obs.counter_group("launch", ("ssm_scan",))
+launches_by_bc = obs.counter_group("launch.ssm_scan", ("bf16_bc", "fp32_bc"))
+_BC_PATH = {torch.float32: "fp32_bc", torch.bfloat16: "bf16_bc"}
 
 
 def reset_launches() -> None:
     launches["ssm_scan"] = 0
+    for path in launches_by_bc:
+        launches_by_bc[path] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,6 +183,7 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
         G, _BC_DTYPES[Bm.dtype], torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(lib, "ssm_scan", err, "ssm_scan")
     launches["ssm_scan"] += 1
+    launches_by_bc[_BC_PATH[Bm.dtype]] += 1
     return y, state
 
 

@@ -33,6 +33,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import transformer
+from tf32_split import matmul_tf32 as _matmul_tf32
+from tf32_split import matmul_tf32x3 as _matmul_tf32x3
 
 # fp32: exp and the summation order differ between XLA and PyTorch;
 # bf16: the output is rounded to bf16 after that (tests/test_kernels.py)
@@ -145,34 +147,6 @@ def test_flash_wrapper_checks_operands():
 # ---------------------------------------------------------------------------
 # the fp32 kernel's 3xTF32 arithmetic, emulated through the plain version
 # ---------------------------------------------------------------------------
-def _tf32(x):
-    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-    zero as ``cvt.rna.tf32.f32``: by bit masks on the fp32 pattern.  A
-    tensor core reads only these 19 bits of an fp32 operand."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _split(x):
-    big = _tf32(x)
-    return big, _tf32(x - big)
-
-
-def _matmul_tf32x3(a, b):
-    """a @ b as the fp32 kernel forms it: each operand split into a TF32
-    big part and the TF32 rounding of its remainder, small·big +
-    big·small + big·big (the small·small term dropped), every product of
-    two TF32 values exact in fp32 and summed in fp32."""
-    (ab, as_), (bb, bs) = _split(a), _split(b)
-    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)
-            + torch.matmul(ab, bb))
-
-
-def _matmul_tf32(a, b):
-    """a @ b with only the big·big product: one TF32 pass."""
-    return torch.matmul(_tf32(a), _tf32(b))
-
-
 def _bkgsd(seed, B, KV, G, Sq, Sk, D):
     return (_randn(seed, (B, KV, G, Sq, D)), _randn(seed + 1, (B, KV, Sk, D)),
             _randn(seed + 2, (B, KV, Sk, D)))

@@ -171,6 +171,10 @@ def test_counters_grow_and_reset_zeroes_the_launch_groups():
               "launch.flash_attention.tf32x3": (
                   flash_attention.launches_by_path, "tf32x3"),
               "launch.ssm_scan": (ssm_scan.launches, "ssm_scan"),
+              "launch.ssm_scan.bf16_bc": (ssm_scan.launches_by_bc,
+                                          "bf16_bc"),
+              "launch.ssm_scan.fp32_bc": (ssm_scan.launches_by_bc,
+                                          "fp32_bc"),
               "launch.wkv6": (wkv6.launches, "wkv6"),
               "launch.mamba_in": (mamba_glue.launches, "mamba_in"),
               "launch.mamba_out": (mamba_glue.launches, "mamba_out"),
@@ -187,6 +191,7 @@ def test_counters_grow_and_reset_zeroes_the_launch_groups():
     assert all(now[full] == 0 for full in groups)
     assert replay_ring.launches == {"ring_apply": 0, "ring_apply_whatif": 0}
     assert flash_attention.launches_by_path == {"sm90": 0, "tf32x3": 0}
+    assert ssm_scan.launches_by_bc == {"bf16_bc": 0, "fp32_bc": 0}
     assert now["events"] == after["events"]
     with pytest.raises(ValueError, match="already registered"):
         obs.counter_group("launch", ("ring_apply",))

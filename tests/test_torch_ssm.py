@@ -39,6 +39,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as sk
 from repro_torch.kernels.mamba_glue import causal_conv_plain
 from repro_torch.models import ssm
+import tf32_split
 
 _T = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -98,24 +99,27 @@ def decay_span(a, chunk):
     return float(-x.sum(axis=2).min())
 
 
-def scan_inputs(seed, Bt, S, H, P, N):
-    """x·dt, a = dt·A with A = −40·(1…H) and dt in [1e-3, 0.1] (a chunk of
-    256 steps sums to about −1 500 at the last head), B and C."""
+def scan_inputs(seed, Bt, S, H, P, N, G=1, decay=40.0):
+    """x·dt, a = dt·A with A = −decay·(1…H) and dt in [1e-3, 0.1] (at 40 a
+    chunk of 256 steps sums to about −1 500 at the last head; at 1 the
+    model's A = −(1…H)), B and C ((Bt, S, N), or (Bt, S, G, N) for G
+    groups)."""
     rng = np.random.default_rng(seed)
     dt = rng.uniform(1e-3, 0.1, (Bt, S, H)).astype(np.float32)
     x = (rng.standard_normal((Bt, S, H, P)) * dt[..., None]).astype(
         np.float32)
-    a = (dt * -40.0 * np.arange(1, H + 1, dtype=np.float32)).astype(
+    a = (dt * -decay * np.arange(1, H + 1, dtype=np.float32)).astype(
         np.float32)
-    Bm = rng.standard_normal((Bt, S, N)).astype(np.float32)
-    Cm = rng.standard_normal((Bt, S, N)).astype(np.float32)
+    bc = (Bt, S, N) if G == 1 else (Bt, S, G, N)
+    Bm = rng.standard_normal(bc).astype(np.float32)
+    Cm = rng.standard_normal(bc).astype(np.float32)
     return x, a, Bm, Cm
 
 
 # ---------------------------------------------------------------------------
 # the kernel's plain version
 # ---------------------------------------------------------------------------
-def staged_scan(x, a, Bm, Cm, chunk, tile=64):
+def staged_scan(x, a, Bm, Cm, chunk, tile=64, mm=None):
     """The CUDA kernel's staged algorithm (``csrc/ssm_scan.cu``) in plain
     PyTorch fp32, tile for tile: 1. C·Bᵀ per (b, chunk) over the 64 × 64
     tiles J ≤ I only, j-major (the other tiles stay NaN, so reading one
@@ -123,7 +127,23 @@ def staged_scan(x, a, Bm, Cm, chunk, tile=64):
     dS_c = Bᵀ diag(exp(cum_Q − cum)) x; 3. the pass S_c = exp(cum_Q) S_{c−1}
     + dS_c, keeping the state entering each chunk; 4. y per 64-row block,
     the inter-chunk term plus the tiles J ≤ I with the decay masked before
-    the exponential.  Returns (y, final state)."""
+    the exponential.  Every tile product is ``mm(a, b, split_a, split_b)``
+    (a plain fp32 product when None), each operand marked as the kernel
+    splits it: B and C when fp32 (a bf16 B or C is exact in TF32), x, the
+    state, w∘x and the decayed C·Bᵀ always.  Grouped B / C ((Bt, S, G, N))
+    run once per group over its H / G heads.  Returns (y, final state)."""
+    if Bm.dim() == 4:
+        hg = x.shape[2] // Bm.shape[2]
+        parts = [staged_scan(x[:, :, g * hg:(g + 1) * hg],
+                             a[..., g * hg:(g + 1) * hg], Bm[:, :, g],
+                             Cm[:, :, g], chunk, tile, mm)
+                 for g in range(Bm.shape[2])]
+        return (torch.cat([y for y, _ in parts], dim=2),
+                torch.cat([st for _, st in parts], dim=1))
+    if mm is None:
+        def mm(p, q, split_p, split_q):
+            return p @ q
+    sp = Bm.dtype == torch.float32
     F = torch.nn.functional
     Bt, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -139,12 +159,13 @@ def staged_scan(x, a, Bm, Cm, chunk, tile=64):
     cb = torch.full((Bt, nc, Q, Q), float("nan"))                 # step 1
     for I in range(nb):
         for J in range(I + 1):
-            cb[:, :, blk[J], blk[I]] = (Bs[:, :, blk[J]]
-                                        @ Cs[:, :, blk[I]].transpose(-1, -2))
+            cb[:, :, blk[J], blk[I]] = mm(
+                Bs[:, :, blk[J]], Cs[:, :, blk[I]].transpose(-1, -2), sp, sp)
     cum = torch.cumsum(As, dim=2)                                 # step 2
     total = cum[:, :, -1]                                         # (Bt,nc,H)
     w = torch.exp(total[:, :, None] - cum)
-    dS = torch.einsum("bcjn,bcjhp->bchnp", Bs, w[..., None] * xs)
+    dS = mm(Bs.transpose(-1, -2)[:, :, None],                      # (b,c,h,n,p)
+            (w[..., None] * xs).transpose(2, 3), sp, True)
     st = torch.empty_like(dS)                                     # step 3
     s = torch.zeros(Bt, H, N, P)
     for c in range(nc):
@@ -154,8 +175,8 @@ def staged_scan(x, a, Bm, Cm, chunk, tile=64):
     rows = torch.arange(Q)
     for I in range(nb):
         i = blk[I]
-        yI = torch.exp(cum[:, :, i])[..., None] * torch.einsum(
-            "bcin,bchnp->bcihp", Cs[:, :, i], st)
+        yI = torch.exp(cum[:, :, i])[..., None] * mm(
+            Cs[:, :, i][:, :, None], st, sp, True).transpose(2, 3)
         for J in range(I + 1):
             j = blk[J]
             live = (rows[j][:, None] <= rows[i][None, :])[..., None]
@@ -163,7 +184,9 @@ def staged_scan(x, a, Bm, Cm, chunk, tile=64):
                             - cum[:, :, j][:, :, :, None], -torch.inf)
             A = torch.where(live, cb[:, :, j, i][..., None] * torch.exp(d),
                             0.0)                                  # (b,c,j,i,h)
-            yI = yI + torch.einsum("bcjih,bcjhp->bcihp", A, xs[:, :, j])
+            yI = yI + mm(A.permute(0, 1, 4, 3, 2),                 # (b,c,h,i,j)
+                         xs[:, :, j].transpose(2, 3), True, True
+                         ).transpose(2, 3)
         y[:, :, i] = yI
     return y.reshape(Bt, nc * Q, H, P)[:, :S], s
 
@@ -185,6 +208,62 @@ def test_staged_scan_matches_plain_and_pallas_interpret(S, N, P, chunk, J):
     span = 2.0 ** -20 * decay_span(a, chunk)
     for got, want in ((y, py), (s, ps), (y, want_y), (s, want_s)):
         _near(got, want, 2e-5 + span)
+
+
+def _split_mm(p, q, split_p, split_q):
+    return tf32_split.matmul_split(p, q, split_p, split_q)
+
+
+def _big_mm(p, q, split_p, split_q):
+    return tf32_split.matmul_tf32(p, q)
+
+
+def _emulation_case(bc, N, G, decay):
+    """The kernel's split-TF32 staged scan and the plain version on one
+    input: B 1, a ragged S = 300 (a 256-row chunk of four row blocks, then
+    a chunk of 44 rows), H 4, P 32, chunk 256; B and C rounded to ``bc``
+    first, as the kernel receives them.  Returns (y, state, plain y, plain
+    state, the card test's limit as a share of max |plain|)."""
+    x, a, Bm, Cm = scan_inputs(N + G, 1, 300, 4, 32, N, G, decay)
+    Bt, Ct = (_t(t, bc) for t in (Bm, Cm))
+    y, s = staged_scan(_t(x), _t(a), Bt, Ct, 256, mm=_split_mm)
+    py, ps = sk.ssm_scan_plain(_t(x), _t(a), Bt, Ct, chunk=256)
+    return y, s, py, ps, 1e-5 + 2.0 ** -20 * decay_span(a, 256)
+
+
+@pytest.mark.parametrize("decay", [40.0, 1.0])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("bc", ["bfloat16", "float32"])
+def test_staged_scan_split_tf32_emulation_matches_plain(bc, N, G, decay):
+    """The CUDA kernel's products as it takes them on the tensor cores
+    (``csrc/ssm_scan.cu``: split TF32, each operand rounded by bit masks as
+    ``cvt.rna`` rounds): an fp32 operand split into its TF32 big part and
+    the TF32 rounding of its remainder, a bf16 B or C exact and unsplit.
+    Through the staged scan, within the card test's tolerance of
+    ``ssm_scan_plain`` (1e-5 + 2⁻²⁰ · decay span of max |plain|), at the
+    strong decay (a span of ~2 000: exp above the diagonal overflows) and
+    the model's."""
+    y, s, py, ps, rel = _emulation_case(bc, N, G, decay)
+    if decay > 1:
+        assert rel > 1e-3          # the large span the kernel must mask
+    _near(y, py, rel)
+    _near(s, ps, rel)
+
+
+def test_scan_tf32_big_products_alone_miss_the_tolerance():
+    """The split is needed: with big·big alone (one TF32 pass, ~2⁻¹¹
+    relative per operand) the staged scan misses the card test's tolerance
+    at the model's decay, where the split products hold it."""
+    x, a, Bm, Cm = scan_inputs(130, 1, 300, 4, 32, 128, 1, 1.0)
+    ops = (_t(x), _t(a), _t(Bm), _t(Cm))
+    py, ps = sk.ssm_scan_plain(*ops, chunk=256)
+    rel = 1e-5 + 2.0 ** -20 * decay_span(a, 256)
+    lim = rel * float(py.abs().max())
+    one, _ = staged_scan(*ops, 256, mm=_big_mm)
+    three, _ = staged_scan(*ops, 256, mm=_split_mm)
+    assert float((one - py).abs().max()) > lim
+    assert float((three - py).abs().max()) <= lim
 
 
 @pytest.mark.parametrize("S,N,chunk", [(32, 8, 16), (100, 16, 32),
@@ -449,3 +528,72 @@ def test_ssm_scan_kernel_refuses_other_shapes(cuda):
                                                          16))
     with pytest.raises(ValueError, match="chunks up to"):
         ops.ssm_scan(x, a, Bm, Cm, chunk=512)
+
+
+# the cells' Mamba2 layers: zamba2_7b.prefill (B 8, S 4 096, 112 heads,
+# P = N = 64, 2 groups) and granite_4_0_h_small.prefill_16k (B 1, S 16 384,
+# 128 heads, P 64, N 128)
+_CELL_LAYERS = {"zamba2_7b": (8, 4096, 112, 64, 64, 2),
+                "granite_4_0_h_small": (1, 16384, 128, 64, 128, 1)}
+
+
+def _card_inputs(dev, Bt, S, H, P, N, G, bc, seed):
+    """The scan's operands drawn on the card at the model's decay (A =
+    −(1…H), dt in [1e-3, 0.1]), B and C as column slices of one
+    (B, S, 2GN) tensor in ``bc`` (grouped views when G > 1), as the mamba
+    block passes them; with the decay (a) for :func:`decay_span`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.rand(Bt, S, H, generator=gen, device=dev) * 0.099 + 1e-3
+    x = torch.randn(Bt, S, H, P, generator=gen, device=dev) * dt[..., None]
+    a = dt * -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+    bcm = torch.randn(Bt, S, 2 * G * N, generator=gen, device=dev).to(_T[bc])
+    Bm, Cm = bcm[..., :G * N], bcm[..., G * N:]
+    if G > 1:
+        Bm, Cm = Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
+    return x, a, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", sorted(_CELL_LAYERS))
+def test_ssm_scan_kernel_at_the_cells_layers_on_card(layer, cuda):
+    """The kernel at each prefill cell's layer shape, bf16 B / C, against
+    its plain version within the tolerance above; one launch, counted
+    under ``bf16_bc`` (B and C exact in TF32, not split)."""
+    x, a, Bm, Cm = _card_inputs(cuda, *_CELL_LAYERS[layer], "bfloat16", 41)
+    sk.reset_launches()
+    y, s = sk.ssm_scan(x, a, Bm, Cm, chunk=256)
+    assert sk.launches == {"ssm_scan": 1}
+    assert sk.launches_by_bc == {"bf16_bc": 1, "fp32_bc": 0}
+    py, ps = sk.ssm_scan_plain(x, a, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    span = 2.0 ** -20 * decay_span(a.cpu().numpy(), 256)
+    _near(y.cpu(), py.cpu(), 1e-5 + span)
+    _near(s.cpu(), ps.cpu(), 1e-5 + span)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", ["bfloat16", "float32"])
+def test_ssm_scan_kernel_is_deterministic_on_card(bc, cuda):
+    """No atomics and no split-k across blocks: two calls on the same
+    input are bitwise equal (2 groups, N 128, a ragged S)."""
+    ops = _card_inputs(cuda, 2, 1000, 16, 64, 128, 2, bc, 42)
+    y1, s1 = sk.ssm_scan(*ops, chunk=256)
+    y2, s2 = sk.ssm_scan(*ops, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_counts_calls_by_bc_dtype_on_card(cuda):
+    """``launch.ssm_scan.{bf16_bc,fp32_bc}`` count each call by its B / C
+    dtype beside ``launch.ssm_scan``; the plain version counts nothing and
+    ``reset_launches`` zeroes both groups."""
+    sk.reset_launches()
+    for bc in ("bfloat16", "float32", "float32"):
+        sk.ssm_scan(*_card_inputs(cuda, 1, 100, 4, 32, 16, 1, bc, 43))
+    sk.ssm_scan_plain(*_card_inputs(cuda, 1, 100, 4, 32, 16, 1, "float32",
+                                    43))
+    assert sk.launches == {"ssm_scan": 3}
+    assert sk.launches_by_bc == {"bf16_bc": 1, "fp32_bc": 2}
+    sk.reset_launches()
+    assert sk.launches_by_bc == {"bf16_bc": 0, "fp32_bc": 0}
